@@ -1,0 +1,164 @@
+"""Perturbed (Eulerian) density + velocity fields at a given redshift.
+
+Equivalent of reference PerturbedField.c:389-496 + map_mass.c:146-208,
+following py21cmfast_tpu/models/perturb.py.  The hires IC "particles" (one per
+hires cell, mass 1 + delta*D_init) are moved by the (2)LPT displacement and
+CIC-deposited on the lowres grid by the swept deposit (ops/deposit.py: the
+hand-written CUDA kernel on the card).
+
+Normalization chain:
+  grid = CIC(1 + delta_hi * D_init)            [sum of masses per cell]
+  1+delta = grid * HII^3/DIM^3 ; delta = .. - 1
+  optional gaussian smoothing; clip at -1+eps
+Velocities:  v_i(k) = dD/dt / D * i k_i / k^2 * delta(k)   [comoving Mpc/s]
+(reference compute_perturbed_velocities:284-388).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .._device import not_in_slice, resolve_device
+from ..cosmology.constants import FRACT_FLOAT_ERR
+from ..inputs import InputParameters
+from ..ops import deposit, fft, filters, grids
+from ..outputs import InitialConditions, PerturbedField
+
+__all__ = ["perturb_field", "uses_swept_deposit"]
+
+_f32 = np.float32
+
+
+def _displacement_factors(inputs: InputParameters, redshift: float):
+    cosmo = inputs.cosmology
+    so = inputs.simulation_options
+    D = float(cosmo.dicke(redshift))
+    D_init = float(cosmo.dicke(so.INITIAL_REDSHIFT))
+    fac_za = D - D_init
+    # 2LPT displacement is psi2 * (-3/7) D^2 (Scoccimarro 1998 eq. D8);
+    # the reference subtracts, with the same form evaluated at both z's.
+    fac_2lpt = (-3.0 / 7.0) * (D**2 - D_init**2)
+    return D, D_init, fac_za, fac_2lpt
+
+
+def _displacement_cells(vel, vel_2lpt, fac_za, fac_2lpt, cells_per_mpc):
+    """Displacement fields in lowres-cell units for the swept deposit.
+
+    The scale factors are formed in float32 (as the JAX package does with
+    its traced float32 growth factors) before they multiply the fields."""
+    out = []
+    for a in range(3):
+        da = vel[a] * float(_f32(fac_za) * _f32(cells_per_mpc[a]))
+        if vel_2lpt is not None:
+            da = da - vel_2lpt[a] * float(_f32(fac_2lpt) * _f32(cells_per_mpc[a]))
+        out.append(da.contiguous())
+    return tuple(out)
+
+
+def uses_swept_deposit(inputs: InputParameters) -> bool:
+    """True when perturb_field takes the swept deposit, i.e. a displaced
+    perturb on the lowres grid with an integer DIM/HII_DIM on every axis."""
+    so = inputs.simulation_options
+    mo = inputs.matter_options
+    hi_shape, lo_shape = so.hires_shape, so.lowres_shape
+    ratio_int = hi_shape[0] // lo_shape[0]
+    return (
+        mo.PERTURB_ALGORITHM != "LINEAR"
+        and mo.PERTURB_DEPOSIT == "SWEPT"
+        and not mo.PERTURB_ON_HIGH_RES
+        and all(h == ratio_int * l for h, l in zip(hi_shape, lo_shape))
+    )
+
+
+def check_inputs(inputs: InputParameters) -> None:
+    """Raise NotImplementedError for perturb options outside the port."""
+    mo = inputs.matter_options
+    if mo.PERTURB_ON_HIGH_RES:
+        not_in_slice("PERTURB_ON_HIGH_RES", 5)
+    if mo.PERTURB_ALGORITHM != "LINEAR" and not uses_swept_deposit(inputs):
+        not_in_slice(
+            f"PERTURB_DEPOSIT={mo.PERTURB_DEPOSIT!r} with DIM/HII_DIM = "
+            f"{inputs.simulation_options.hires_to_lowres_factor}", 5,
+        )
+
+
+def _finalize_density_and_velocity(
+    grid_1pd, mass_factor, dDdt_over_D, *, lo_shape, box_lens, smooth, smooth_R, need_xy
+):
+    """(1+delta) normalization, optional smoothing, clipping, k-space velocities."""
+    dev = grid_1pd.device
+    delta = grid_1pd * mass_factor - 1.0
+    d_k = fft.rfft3(delta)
+    if smooth:
+        kmag = grids.kmag_grid(lo_shape, box_lens, dev)
+        d_k = filters.filter_kbox(d_k, kmag, filters.GAUSSIAN, float(_f32(smooth_R)))
+    delta = torch.clamp_min(fft.irfft3(d_k, lo_shape), -1.0 + FRACT_FLOAT_ERR)
+
+    kx, ky, kz = grids.k_axes(lo_shape, box_lens, dev)
+    ksq = grids.ksq_grid(lo_shape, box_lens, dev)
+    ksq_safe = torch.where(ksq > 0, ksq, 1.0)
+
+    def vel_axis(kvec):
+        v_k = d_k * (1j * (kvec * dDdt_over_D) / ksq_safe)
+        return fft.irfft3(v_k.masked_fill_(ksq == 0, 0), lo_shape)
+
+    v_z = vel_axis(kz[None, None, :])
+    v_x = vel_axis(kx[:, None, None]) if need_xy else None
+    v_y = vel_axis(ky[None, :, None]) if need_xy else None
+    return delta, v_x, v_y, v_z
+
+
+def perturb_field(
+    redshift: float, inputs: InputParameters, ics: InitialConditions, *, device="cuda"
+) -> PerturbedField:
+    """Compute the Eulerian density/velocity at `redshift` from the ICs.
+
+    The IC fields are moved to `device` if they live elsewhere."""
+    dev = resolve_device(device)
+    check_inputs(inputs)
+    so = inputs.simulation_options
+    mo = inputs.matter_options
+    cosmo = inputs.cosmology
+    hi_shape = so.hires_shape
+    lo_shape = so.lowres_shape
+    box_lens = so.box_lens
+
+    D, D_init, fac_za, fac_2lpt = _displacement_factors(inputs, redshift)
+    dDdt_over_D = float(_f32(cosmo.ddicke_dt(redshift) / D))
+
+    if mo.PERTURB_ALGORITHM == "LINEAR":
+        grid_1pd = ics.lowres_density.to(dev) * float(_f32(D)) + 1.0
+        mass_factor = 1.0
+    else:
+        ratio = hi_shape[0] // lo_shape[0]
+        cells_per_mpc = tuple(lo_shape[a] / box_lens[a] for a in range(3))
+        use_2lpt = mo.PERTURB_ALGORITHM == "2LPT" and ics.vx_2LPT is not None
+        vel = tuple(v.to(dev) for v in (ics.vx, ics.vy, ics.vz))
+        vel_2lpt = (
+            tuple(v.to(dev) for v in (ics.vx_2LPT, ics.vy_2LPT, ics.vz_2LPT))
+            if use_2lpt else None
+        )
+        d_fields = _displacement_cells(vel, vel_2lpt, fac_za, fac_2lpt, cells_per_mpc)
+        grid_1pd = deposit.cic_deposit_swept(
+            ics.hires_density.to(dev).contiguous(), *d_fields, float(_f32(D_init)), ratio
+        )
+        mass_factor = float(_f32(np.prod(lo_shape) / np.prod(hi_shape)))
+
+    delta, v_x, v_y, v_z = _finalize_density_and_velocity(
+        grid_1pd,
+        mass_factor,
+        dDdt_over_D,
+        lo_shape=lo_shape,
+        box_lens=box_lens,
+        smooth=mo.SMOOTH_EVOLVED_DENSITY_FIELD,
+        smooth_R=so.DENSITY_SMOOTH_RADIUS * so.box_len / so.HII_DIM,
+        need_xy=mo.KEEP_3D_VELOCITIES,
+    )
+    return PerturbedField(
+        redshift=np.float32(redshift),
+        density=delta,
+        velocity_z=v_z,
+        velocity_x=v_x,
+        velocity_y=v_y,
+    )

@@ -1,0 +1,303 @@
+"""The port's saturated-Ts coeval slice against the JAX package, stage by stage
+and end to end, at golden size (HII_DIM=24, DIM=72, BOX_LEN=36), on the CPU.
+
+Each stage gets the JAX package's own inputs, carried across by
+py21cmfast_torch.interop, so a stage is compared on identical state:
+  perturb     density, velocity_z: max-abs <= 1e-4 std (float32 CIC sums in
+              another order and FFTs of another library);
+  ionization  share of cells with |dxH| > 1e-3 <= 1e-3 and global xH within
+              1e-3 (thresholded cells flip on float32 rounding of fcoll);
+  Tb          max-abs <= 1e-5 max|Tb|.
+The whole coeval from one shared hires density meets the gates of
+tests/test_golden.py against the JAX package run on that density.
+Plus the port's guards: no JAX imports, no silent CPU fallback, and
+NotImplementedError for options outside the slice.
+"""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from test_torch_ics import jax_inputs, numpy_grf, port_inputs
+
+import py21cmfast_torch as t21
+from py21cmfast_torch import interop
+from py21cmfast_torch.models import brightness as tbright
+from py21cmfast_torch.models import ionization as tion
+from py21cmfast_torch.models import perturb as tpert
+from py21cmfast_tpu.drivers.coeval import run_coeval as j_run_coeval
+from py21cmfast_tpu.models import brightness as jbright
+from py21cmfast_tpu.models import ics as jics
+from py21cmfast_tpu.models import ionization as jion
+from py21cmfast_tpu.models import perturb as jpert
+from py21cmfast_tpu.ops import ps
+
+REPO = Path(__file__).resolve().parent.parent
+REDSHIFTS = [8.0, 10.5]
+
+
+def _numpy(struct):
+    """A JAX output struct as a dict of numpy arrays / scalars."""
+    return {k: (None if v is None else np.asarray(v)) for k, v in vars(struct).items()}
+
+
+@pytest.fixture(scope="module")
+def jax_state():
+    """JAX inputs, ICs from a numpy GRF, and per-z perturbed/ionized boxes."""
+    jinp = jax_inputs()
+    dens = numpy_grf(jinp, seed=5)
+    j_ics = jics.compute_initial_conditions(jinp, initial_density=dens)
+    pfs = {z: jpert.perturb_field(z, jinp, j_ics) for z in REDSHIFTS}
+    ions = {z: jion.compute_ionization_field(z, jinp, pfs[z]) for z in REDSHIFTS}
+    return dict(jinp=jinp, tinp=port_inputs(jinp), dens=dens, ics=j_ics, pf=pfs, ion=ions)
+
+
+def _xh_gates(got, ref, ctx):
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    flipped = np.mean(np.abs(got - ref) > 1e-3)
+    assert flipped <= 1e-3, f"{ctx}: {flipped:.2e} of cells differ by > 1e-3"
+    assert abs(got.mean() - ref.mean()) <= 1e-3, (ctx, got.mean(), ref.mean())
+
+
+@pytest.mark.parametrize("z", REDSHIFTS)
+def test_perturb_matches_jax(jax_state, z):
+    ics = interop.initial_conditions_from_numpy(_numpy(jax_state["ics"]), "cpu")
+    got = tpert.perturb_field(z, jax_state["tinp"], ics, device="cpu")
+    ref = jax_state["pf"][z]
+    assert float(got.redshift) == float(ref.redshift)
+    for name in ("density", "velocity_z"):
+        r = np.asarray(getattr(ref, name))
+        err = np.abs(getattr(got, name).numpy() - r).max()
+        assert err <= 1e-4 * r.std(), f"{name} z={z}: max-abs {err:.3e} > 1e-4 x {r.std():.3e}"
+
+
+@pytest.mark.parametrize("z", REDSHIFTS)
+def test_ionization_matches_jax(jax_state, z):
+    pf = interop.perturbed_field_from_numpy(_numpy(jax_state["pf"][z]), "cpu")
+    got = tion.compute_ionization_field(z, jax_state["tinp"], pf, device="cpu")
+    ref = jax_state["ion"][z]
+    _xh_gates(got.neutral_fraction.numpy(), ref.neutral_fraction, f"xH z={z}")
+    np.testing.assert_allclose(got.mean_f_coll, ref.mean_f_coll, rtol=1e-6)
+    ionized_agree = (got.neutral_fraction.numpy() < 1e-30) == (np.asarray(ref.neutral_fraction) < 1e-30)
+    np.testing.assert_array_equal(
+        got.z_reion.numpy()[ionized_agree], np.asarray(ref.z_reion)[ionized_agree]
+    )
+    # kinetic temperature is continuous where the neutral fraction agrees
+    same = np.abs(got.neutral_fraction.numpy() - np.asarray(ref.neutral_fraction)) <= 1e-6
+    tk, tk_ref = got.kinetic_temperature.numpy()[same], np.asarray(ref.kinetic_temperature)[same]
+    assert np.abs(tk - tk_ref).max() <= 1e-5 * np.abs(tk_ref).max()
+
+
+@pytest.mark.parametrize("branch", ["table-gather", "CONST-ION-EFF"])
+def test_ionization_other_branches_match_jax(jax_state, monkeypatch, branch):
+    """The per-R table gather (taken when a Chebyshev fit is poor) and the
+    closed-form erfc of CONST-ION-EFF, at z=8 on the same perturbed field."""
+    jinp, tinp = jax_state["jinp"], jax_state["tinp"]
+    if branch == "table-gather":
+        for mod in (tion, jion):
+            fit = mod._fit_log_cheby
+            monkeypatch.setattr(mod, "_fit_log_cheby", lambda t, c, fit=fit: (*fit(t, c)[:2], False))
+    else:
+        jinp = jinp.evolve_input_structs(SOURCE_MODEL="CONST-ION-EFF")
+        tinp = tinp.evolve_input_structs(SOURCE_MODEL="CONST-ION-EFF")
+    jpf = jax_state["pf"][8.0]
+    ref = jion.compute_ionization_field(8.0, jinp, jpf)
+    pf = interop.perturbed_field_from_numpy(_numpy(jpf), "cpu")
+    got = tion.compute_ionization_field(8.0, tinp, pf, device="cpu")
+    assert 0.0 < ref.global_xH < 1.0
+    _xh_gates(got.neutral_fraction.numpy(), ref.neutral_fraction, branch)
+
+
+@pytest.mark.parametrize("z", REDSHIFTS)
+def test_brightness_matches_jax(jax_state, z):
+    jinp = jax_state["jinp"]
+    ref = jbright.brightness_temperature(jinp, jax_state["ion"][z], jax_state["pf"][z])
+    ion = interop.ionized_box_from_numpy(_numpy(jax_state["ion"][z]), "cpu")
+    pf = interop.perturbed_field_from_numpy(_numpy(jax_state["pf"][z]), "cpu")
+    got = tbright.brightness_temperature(jax_state["tinp"], ion, pf, device="cpu")
+    r = np.asarray(ref.brightness_temp)
+    assert np.abs(got.brightness_temp.numpy() - r).max() <= 1e-5 * np.abs(r).max()
+    assert got.tau_21 is None
+
+
+def test_brightness_with_spin_temperature_matches_jax():
+    """The optical-depth branch of _tb_kernel, on the same random grids.
+    tau21 within 1e-5 max|tau|.  Tb = (1 - exp(-tau)) 1000 (Ts - Tcmb)/(1+z)
+    cancels at small tau: two libraries' float32 exp, each within an ulp,
+    leave up to 2 eps in 1 - exp(-tau), so Tb may also differ by
+    2 eps 1000 |Ts - Tcmb| / (1+z) in each cell."""
+    rng = np.random.default_rng(3)
+    xh = rng.uniform(0, 1, (6, 6, 6)).astype(np.float32)
+    delta = rng.normal(0, 0.5, (6, 6, 6)).clip(-0.9).astype(np.float32)
+    ts = rng.uniform(5, 300, (6, 6, 6)).astype(np.float32)
+    c, t_rad, zp1 = np.float32(25.0), np.float32(29.97), np.float32(11.0)
+    ref_tb, ref_tau = (np.asarray(a) for a in jbright._tb_kernel(
+        jnp.asarray(xh), jnp.asarray(delta), jnp.asarray(ts), c, t_rad, zp1, use_ts=True))
+    tb, tau = tbright._tb_kernel(
+        *(torch.from_numpy(a) for a in (xh, delta, ts)),
+        *(torch.tensor(v) for v in (c, t_rad, zp1)), use_ts=True)
+    assert np.abs(tau.numpy() - ref_tau).max() <= 1e-5 * np.abs(ref_tau).max()
+    eps = np.finfo(np.float32).eps
+    bound = 1e-5 * np.abs(ref_tb).max() + 2 * eps * 1000 * np.abs(ts - t_rad) / zp1
+    assert np.all(np.abs(tb.numpy() - ref_tb) <= bound)
+
+
+def test_simple_coeval_meets_golden_gates_against_jax(jax_state):
+    """The port's whole coeval (its own ICs from the shared hires density, then
+    perturb -> ionize -> Tb) against the JAX package's on the same density."""
+    z = 10.5
+    ref = j_run_coeval(jax_state["jinp"], z, initial_conditions=jax_state["ics"])
+    ics = t21.compute_initial_conditions(
+        jax_state["tinp"], initial_density=jax_state["dens"], device="cpu")
+    got = t21.run_coeval(jax_state["tinp"], z, initial_conditions=ics, device="cpu")
+    box_lens = jax_state["jinp"].simulation_options.box_lens
+    bt, bt_ref = got.brightness_temp.numpy(), np.asarray(ref.brightness_temp)
+    np.testing.assert_allclose(
+        got.neutral_fraction.numpy().mean(), np.asarray(ref.neutral_fraction).mean(), atol=5e-3)
+    np.testing.assert_allclose(bt.mean(), bt_ref.mean(), rtol=5e-3, atol=0.05)
+    _, p, _ = ps.power_spectrum_1d(bt, box_lens, n_bins=8)
+    _, p_ref, _ = ps.power_spectrum_1d(bt_ref, box_lens, n_bins=8)
+    good = np.isfinite(p_ref) & (p_ref > 0)
+    np.testing.assert_allclose(p[good], p_ref[good], rtol=1e-2)
+
+
+def test_generate_coeval_yields_highest_redshift_first():
+    inp = t21.InputParameters(random_seed=2).evolve_input_structs(
+        HII_DIM=8, DIM=16, BOX_LEN=16.0, SOURCE_MODEL="E-INTEGRAL")
+    out = list(t21.generate_coeval(inp, [7.0, 9.0, 8.0], device="cpu"))
+    assert [c.redshift for c in out] == [9.0, 8.0, 7.0]
+    ics = out[0].initial_conditions
+    assert all(c.initial_conditions is ics for c in out)
+    xh = [c.ionized_box.global_xH for c in out]
+    assert xh[0] >= xh[1] >= xh[2]
+
+
+@pytest.mark.parametrize(
+    "cls, make",
+    [
+        (t21.InitialConditions, interop.initial_conditions_from_numpy),
+        (t21.PerturbedField, interop.perturbed_field_from_numpy),
+        (t21.IonizedBox, interop.ionized_box_from_numpy),
+        (t21.BrightnessTemp, interop.brightness_temp_from_numpy),
+        (t21.TsBox, interop.ts_box_from_numpy),
+    ],
+    ids=lambda v: getattr(v, "__name__", ""),
+)
+def test_interop_structs_round_trip(cls, make):
+    """Every field name of the port's struct is accepted from a numpy dict:
+    grids become float32 tensors, scalars numpy float32, absent fields None."""
+    import dataclasses
+
+    rng = np.random.default_rng(0)
+    names = [f.name for f in dataclasses.fields(cls)]
+    arrays = {n: (np.float64(9.5) if n.startswith(("redshift", "mean", "log10"))
+                  else rng.normal(size=(3, 4, 5))) for n in names[:4]}
+    struct = make(arrays, "cpu")
+    back = struct.to_numpy()
+    for n in names:
+        if n not in arrays:
+            assert back[n] is None
+        elif np.ndim(arrays[n]):
+            assert getattr(struct, n).dtype == torch.float32
+            np.testing.assert_array_equal(back[n], arrays[n].astype(np.float32))
+        else:
+            assert back[n] == np.float32(arrays[n]) and isinstance(back[n], np.float32)
+
+
+# ------------------------------------------------------------------- guards
+
+
+def test_import_loads_no_jax():
+    code = (
+        "import sys; before = set(sys.modules); import py21cmfast_torch; "
+        "new = [m for m in set(sys.modules) - before "
+        "if m.split('.')[0] in ('jax', 'jaxlib', 'py21cmfast_tpu')]; "
+        "print(new); sys.exit(1 if new else 0)"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def _imported_modules(path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+def test_port_and_chip_smoke_import_no_jax():
+    files = sorted((REPO / "py21cmfast_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 20
+    bad = [
+        (str(f.relative_to(REPO)), m) for f in files for m in _imported_modules(f)
+        if m.split(".")[0] in ("jax", "jaxlib", "py21cmfast_tpu")
+    ]
+    assert not bad, bad
+
+
+@pytest.fixture
+def no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("checks the behaviour without a CUDA device")
+
+
+@pytest.mark.parametrize(
+    "call",
+    ["compute_initial_conditions", "perturb_field", "compute_ionization_field",
+     "brightness_temperature", "run_coeval", "interop"],
+)
+def test_entry_points_default_to_cuda(no_cuda, call):
+    """Called without device=, an entry point asks for the card and raises
+    where there is none, instead of running on the CPU."""
+    inp = t21.InputParameters(random_seed=1).evolve_input_structs(
+        HII_DIM=8, DIM=16, BOX_LEN=16.0, SOURCE_MODEL="E-INTEGRAL")
+    calls = {
+        "compute_initial_conditions": lambda: t21.compute_initial_conditions(inp),
+        "perturb_field": lambda: t21.perturb_field(8.0, inp, None),
+        "compute_ionization_field": lambda: t21.compute_ionization_field(8.0, inp, None),
+        "brightness_temperature": lambda: t21.brightness_temperature(inp, None, None),
+        "run_coeval": lambda: t21.run_coeval(inp, 8.0),
+        "interop": lambda: interop.perturbed_field_from_numpy({"density": np.zeros((2, 2, 2))}),
+    }
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calls[call]()
+
+
+@pytest.mark.parametrize(
+    "over",
+    [
+        dict(USE_TS_FLUCT=True),
+        dict(RECOMB_MODEL="INHOMOGENEOUS", R_BUBBLE_MAX=15.0),
+        dict(USE_MINI_HALOS=True),
+        dict(SOURCE_MODEL="L-INTEGRAL"),
+        dict(SOURCE_MODEL="CHMF-SAMPLER"),
+        dict(PHOTON_CONS_TYPE="Z-PHOTONCONS"),
+        dict(PERTURB_DEPOSIT="SCATTER"),
+        dict(PERTURB_ON_HIGH_RES=True),
+        dict(DIM=20),
+        dict(V_CB_MODEL="FLUCTS"),
+        dict(IONISE_ENTIRE_SPHERE=True),
+    ],
+    ids=lambda d: ",".join(f"{k}={v}" for k, v in d.items()),
+)
+def test_options_outside_the_slice_raise(over):
+    inp = t21.InputParameters(random_seed=1).evolve_input_structs(
+        HII_DIM=8, DIM=16, BOX_LEN=16.0, SOURCE_MODEL="E-INTEGRAL").evolve_input_structs(**over)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
+        t21.run_coeval(inp, 8.0, device="cpu")
+
+
+def test_cache_and_node_scroll_raise():
+    inp = t21.InputParameters(random_seed=1).evolve_input_structs(
+        HII_DIM=8, DIM=16, BOX_LEN=16.0, SOURCE_MODEL="E-INTEGRAL")
+    with pytest.raises(NotImplementedError, match="cache"):
+        t21.run_coeval(inp, 8.0, cache=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="node_redshifts"):
+        t21.run_coeval(inp.with_logspaced_redshifts(8.0, 12.0), 8.0, device="cpu")
