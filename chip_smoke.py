@@ -9,10 +9,14 @@ Phases, in order; any failure raises and the script exits non-zero:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
   2. build every CUDA kernel in py21cmfast_torch/csrc (one nvcc per source,
      in parallel), with ptxas's register report;
-  3. each kernel against its plain PyTorch version on the card: random cases
-     and the main path's own inputs, with CUDA-event timings;
+  3. each kernel against its plain PyTorch version on the card: edge cases
+     and the main path's own inputs, with CUDA-event timings of the kernel
+     and its plain version, and the share of the deposits that bypass the
+     kernel's shared-memory tile;
   4. a golden-size coeval (HII_DIM=24) on the card against the same coeval on
      the CPU, from the same hires density;
+  4b. the same for PERTURB_DEPOSIT="SCATTER" and PERTURB_ON_HIGH_RES, which
+     reach the same kernel, and PERTURB_ON_HIGH_RES at the main path's size;
   5. the main path: run_coeval of the simple+size-medium template
      (HII_DIM=128, DIM=384, 256 Mpc) at z=10 and z=8, with every kernel's
      launch count zeroed just before and read just after;
@@ -42,9 +46,9 @@ GOLDEN_SIZE = dict(
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and non-tensor fp32 FLOP/s
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
-# float operations per sub-particle in csrc/cic_deposit.cu: position (3 adds +
-# 3 adds + 3 divides), mass (1 fma = 2), floor and fraction (6), 1-f (3), the
-# 8 weight products (16) and the 8 atomic adds
+# float operations per sub-particle of the CIC deposit as a function: position
+# (3 adds + 3 adds + 3 divides), mass (1 fma = 2), floor and fraction (6), 1-f
+# (3), the 8 weight products (16) and the 8 adds
 DEPOSIT_FLOPS_PER_PARTICLE = 44
 
 
@@ -98,20 +102,84 @@ def build_kernels():
     print(f"[build] {len(logs)} of {len(_kernels.sources())} sources compiled in "
           f"{time.perf_counter() - t0:.2f} s")
     for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {name}: {line.strip()}")
+        lines = log.splitlines()
+        for i, line in enumerate(lines):
+            # ptxas names the function, then its stack and spills, then registers
+            if "Compiling entry function" in line and "kernelILi3E" in line:
+                print(f"[build] {name}: {line.split(chr(39))[1]}: "
+                      + "; ".join(x.strip() for x in lines[i + 1:i + 4] if "bytes" in x or "registers" in x))
+    _print_shared_atomic_opcodes()
+
+
+def _print_shared_atomic_opcodes():
+    """How the card's compiler lowered the adds of the R = 3 kernel: count the
+    atomic opcodes in its SASS (cuobjdump).  The tile's adds must be native
+    integer ones (ATOMS.ADD), with no compare-and-swap loop (ATOMS.CAST.SPIN),
+    which is what a float atomicAdd on shared memory becomes."""
+    import collections
+    import re
+    import shutil
+
+    from py21cmfast_torch import _kernels
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(_kernels.library_path("cic_deposit"))],
+                          capture_output=True, text=True, check=True, timeout=120).stdout
+    bodies = [b for b in sass.split("Function : ")[1:] if "kernelILi3E" in b.split()[0]]
+    if len(bodies) != 1:
+        raise AssertionError(f"expected one R = 3 kernel in the SASS, found {len(bodies)}")
+    ops = collections.Counter(re.findall(r"\b(ATOMS[.\w]*|REDS?[.\w]*|ATOMG[.\w]*|REDG[.\w]*)", bodies[0]))
+    print(f"[build] SASS {bodies[0].split()[0]}: {dict(ops)}")
+    if ops["ATOMS.ADD"] < 27 or any("CAS" in op for op in ops):
+        raise AssertionError(f"the tile's 27 adds are not native integer adds: {dict(ops)}")
+
+
+# the kernel's brick of channel cells per block, at ratio 1 and above, and its
+# halo (H cells below the brick, H + 1 above), as csrc/cic_deposit.cu sets them
+DEPOSIT_BRICK_RATIO1, DEPOSIT_BRICK, DEPOSIT_HALO = (16, 16, 16), (8, 8, 32), 3
+
+
+def global_path_share(d, ratio):
+    """Share of the sub-particles whose deposits bypass the kernel's
+    shared-memory tile and go to global memory, computed with torch from the
+    displacement fields by the kernel's own rule (csrc/cic_deposit.cu).
+    Ratio above 1: a channel's 27 sums go global when on some axis the 3-cell
+    stencil that starts at floor(c + d + s_first/R) leaves the tile of the
+    brick that holds c (`tile_coordinate`), or spans more than 3 cells
+    (`stencil_base`).  Ratio 1: a particle goes global when on some axis its
+    2 cells from floor(c + d) leave the tile."""
+    import torch
+
+    brick, halo = DEPOSIT_BRICK_RATIO1 if ratio == 1 else DEPOSIT_BRICK, DEPOSIT_HALO
+    residuals = [float(np.float32(s - ratio // 2) / np.float32(ratio)) for s in range(ratio)]
+    inside = 1.0
+    for axis, (da, b) in enumerate(zip(d, brick)):
+        shape = [1, 1, 1]
+        shape[axis] = da.shape[axis]
+        c = torch.arange(da.shape[axis], device=da.device)
+        q = c.to(torch.float32).reshape(shape) + da
+        origin = (torch.div(c, b, rounding_mode="floor") * b - halo).to(torch.float32).reshape(shape)
+        extent = b + 2 * halo + 1
+        if ratio > 1:
+            base = torch.floor(q + residuals[0])
+            t = base - origin
+            ok = (t >= 0) & (t <= extent - 3) & (torch.floor(q + residuals[-1]) - base <= 1)
+            inside = inside * ok.double()
+        else:
+            t = torch.floor(q) - origin
+            inside = inside * ((t >= 0) & (t <= extent - 2)).double()
+    return 1.0 - inside.mean().item()
 
 
 def check_deposit(hires, d, d_init, ratio, label):
-    """Kernel vs plain on the card, cell by cell:
+    """Kernel vs plain on the card (masses must be positive), cell by cell:
     |kernel - plain| <= 1e-5 max(plain_cell, mean(plain)), and the kernel's
     total mass equal to the plain total and to the exact particle mass within
     1e-6 relative (float64 sums).  Both sides add float32 atomics in a
     run-dependent order; the rounding of such a sum grows with the cell's own
-    mass (a cell of 8x the mean mass at the main-path shape takes ~1700
-    adds at an ulp of 1.5e-5), so the bound follows the cell where it holds
-    more than the mean."""
+    mass (the plain version adds ~1700 single terms into a cell of 8x the mean
+    mass at the main-path shape, at an ulp of 1.5e-5), so the bound follows
+    the cell where it holds more than the mean."""
     import torch
 
     from py21cmfast_torch.ops import deposit
@@ -130,17 +198,36 @@ def check_deposit(hires, d, d_init, ratio, label):
         and abs(tot_k - tot_p) <= 1e-6 * abs(tot_p)
         and abs(tot_k - tot_exact) <= 1e-6 * abs(tot_exact)
     )
-    print(f"[deposit] {label}: max|kernel-plain| {err:.3e} (mean mass {mean:.3f}), "
+    share = global_path_share(d, ratio)
+    print(f"[deposit] {label}: "
+          f"max|kernel-plain| {err:.3e} (mean mass {mean:.3f}), "
           f"max |kernel-plain|/max(plain, mean) {worst:.3e} (limit 1e-5), "
-          f"mass kernel {tot_k:.9e} plain {tot_p:.9e} exact {tot_exact:.9e} -> "
+          f"mass kernel {tot_k:.9e} plain {tot_p:.9e} exact {tot_exact:.9e}, "
+          f"global-path share {share:.3e} -> "
           f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"cic_deposit_swept disagrees with its plain version ({label})")
-    return err
+    return err, worst
+
+
+# (lowres shape, ratios, mean and sigma of the displacement in cells): extents
+# below the tile and off the brick's multiples, R = 1, even and odd R, a ratio
+# without a compiled-in loop (5), zero displacement, negative positions, and
+# sigma = 6 and 12 cells, where 40% and 80% of the deposits take the global path
+DEPOSIT_CASES = [
+    ((16, 16, 24), (1, 2, 3, 4, 5), 0.0, 2.0),
+    ((4, 6, 10), (2, 3), 0.0, 2.0),
+    ((24, 24, 24), (3,), 0.0, 0.6),
+    ((20, 17, 33), (2, 3), 0.0, 0.0),
+    ((20, 17, 33), (1, 3), -7.5, 1.0),
+    ((40, 24, 36), (1, 2, 3), 0.0, 6.0),
+    ((40, 24, 36), (1, 3), 0.0, 12.0),
+]
 
 
 def kernel_phase():
-    """Random cases, then the main path's own z=8 inputs with timings."""
+    """The edge cases, then the main path's own z=8 inputs with timings of
+    the kernel and its plain version."""
     import torch
 
     import py21cmfast_torch as p21
@@ -149,14 +236,22 @@ def kernel_phase():
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
-    lo = (16, 16, 24)
-    for R in (1, 2, 3, 4):
+    for lo, ratios, mu, sigma in DEPOSIT_CASES:
+        for R in ratios:
+            hires = torch.from_numpy(
+                rng.normal(0, 0.3, tuple(R * n for n in lo)).astype(np.float32)).to(dev)
+            d = [torch.from_numpy(rng.normal(mu, sigma, lo).astype(np.float32)).to(dev)
+                 for _ in range(3)]
+            check_deposit(hires, d, 0.5, R, f"R={R} lowres {lo}, d ~ N({mu}, {sigma}) cells")
+    # masses of ~70 R^3 per channel: cells of the fixed-point tile wrap past
+    # 2^31 units (256 mean cell masses), and the heaviest channels exceed what
+    # a thread may convert and take the global path
+    for R in (1, 3):
+        lo = (20, 17, 33)
         hires = torch.from_numpy(
-            rng.normal(0, 0.3, tuple(R * n for n in lo)).astype(np.float32)).to(dev)
-        d = [torch.from_numpy(rng.normal(0, 2.0, lo).astype(np.float32)).to(dev)
-             for _ in range(3)]
-        check_deposit(hires, d, 0.5, R, f"random R={R} lowres {lo}, |d| up to "
-                      f"{max(x.abs().max().item() for x in d):.1f} cells")
+            np.abs(rng.normal(0, 180.0, tuple(R * n for n in lo))).astype(np.float32)).to(dev)
+        d = [torch.from_numpy(rng.normal(0, 0.6, lo).astype(np.float32)).to(dev) for _ in range(3)]
+        check_deposit(hires, d, 0.5, R, f"R={R} lowres {lo}, heavy masses")
 
     inputs = p21.InputParameters.from_template(MAIN_TEMPLATE, random_seed=SEED)
     so = inputs.simulation_options
@@ -169,18 +264,57 @@ def kernel_phase():
     ratio = so.hires_shape[0] // so.lowres_shape[0]
     d_init = float(np.float32(D_init))
     hires = ics.hires_density
-    err = check_deposit(hires, d, d_init, ratio, f"main path z=8 hires {so.hires_shape}")
+    print(f"[deposit] main path z=8: displacement rms per axis "
+          f"{[round(x.std().item(), 4) for x in d]} cells, max |d| "
+          f"{max(x.abs().max().item() for x in d):.3f} cells")
+    err, worst = check_deposit(hires, d, d_init, ratio, f"main path z=8 hires {so.hires_shape}")
 
-    kernel_ms = _event_median_ms(lambda: deposit.cic_deposit_swept(hires, *d, d_init, ratio), 20)
+    def kernel():
+        return deposit.cic_deposit_swept(hires, *d, d_init, ratio)
+
+    def batched_ms(n=50):
+        """n launches between one pair of events: the kernel with the zeroing
+        of its output, without the host's time to enqueue a single call."""
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        kernel()
+        start.record()
+        for _ in range(n):
+            kernel()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / n
+
+    def host_call_ms(n=200):
+        """Host clock over n wrapper calls that nothing waits for: what one
+        call costs the host before its launch is enqueued (argument checks,
+        the output's allocation, the ctypes call)."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            kernel()
+        seconds = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        return 1e3 * seconds / n
+
+    # kernel, plain, kernel again: one card, in turns.  The kernel's time is
+    # the median of single calls, each between its own pair of events, so it
+    # holds the host's time to enqueue one call; the time of a call in a run
+    # of launches stands beside it.
+    kernel_ms, batch_ms = _event_median_ms(kernel, 20), batched_ms()
     plain_ms = _event_median_ms(lambda: deposit.cic_deposit_swept_plain(hires, *d, d_init, ratio), 10)
+    host_ms = host_call_ms()
+    print(f"[deposit] kernel again: {_event_median_ms(kernel, 20):.4f} ms (median of 20 single "
+          f"calls), {batched_ms():.4f} ms a call in a run of 50; the host spends {host_ms:.4f} ms "
+          f"on a call (200 calls, not waited for)")
     n_lo = int(np.prod(so.lowres_shape))
     n_bytes = 4 * (hires.numel() + 3 * n_lo + n_lo)
     n_ops = DEPOSIT_FLOPS_PER_PARTICLE * hires.numel()
     bytes_ms, ops_ms = 1e3 * n_bytes / PEAK_BYTES_PER_S, 1e3 * n_ops / PEAK_FP32_FLOPS
-    print(f"[deposit] main-path shape: kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms "
-          f"(medians of 20 and 10 CUDA-event timings); bound {max(bytes_ms, ops_ms):.4f} ms "
+    print(f"[deposit] main-path shape: kernel {kernel_ms:.4f} ms (median of 20 single calls; "
+          f"{batch_ms:.4f} ms a call in a run of 50), plain {plain_ms:.4f} ms "
+          f"(median of 10 single calls), all by CUDA events; bound {max(bytes_ms, ops_ms):.4f} ms "
           f"({n_bytes / 1e6:.1f} MB -> {bytes_ms:.4f} ms, {n_ops / 1e9:.2f} GFLOP -> "
-          f"{ops_ms:.4f} ms); {8 * hires.numel():.3e} float atomics")
+          f"{ops_ms:.4f} ms); worst per-cell error {worst:.3e} of the cell's mass")
     return {
         "name": "cic_deposit_swept",
         "route": "cuda",
@@ -190,6 +324,8 @@ def kernel_phase():
         "max_abs_err": err,
         "ms": kernel_ms,
         "kernel_ms": kernel_ms,
+        "batched_ms": batch_ms,
+        "host_call_ms": host_ms,
         "plain_ms": plain_ms,
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
@@ -197,14 +333,13 @@ def kernel_phase():
     }
 
 
-def small_coeval_phase():
-    """The golden-size "simple" coeval on the card against the CPU, both from
-    the same hires density (the two generators draw different noise)."""
-    import torch
-
+def _card_vs_cpu_coeval(label, **over):
+    """A golden-size coeval on the card against the CPU, both from the same
+    hires density (the two generators draw different noise)."""
     import py21cmfast_torch as p21
+    from py21cmfast_torch.ops import deposit
 
-    inputs = p21.InputParameters(random_seed=SEED).evolve_input_structs(**GOLDEN_SIZE)
+    inputs = p21.InputParameters(random_seed=SEED).evolve_input_structs(**GOLDEN_SIZE, **over)
     ics_cpu = p21.compute_initial_conditions(inputs, device="cpu")
     ics_gpu = p21.compute_initial_conditions(
         inputs, initial_density=ics_cpu.hires_density.numpy()
@@ -213,17 +348,22 @@ def small_coeval_phase():
         a = getattr(ics_cpu, name)
         b = getattr(ics_gpu, name).cpu()
         err, scale = (a - b).abs().max().item(), a.abs().max().item()
-        if not err <= 1e-5 * scale:
-            raise AssertionError(f"ICs {name}: card vs CPU max-abs {err:.3e} > 1e-5 x {scale:.3e}")
+        if a.shape != b.shape or not err <= 1e-5 * scale:
+            raise AssertionError(
+                f"{label} ICs {name}: card vs CPU max-abs {err:.3e} > 1e-5 x {scale:.3e}")
     cpu = p21.run_coeval(inputs, 10.5, initial_conditions=ics_cpu, device="cpu")
+    launches = deposit.cic_deposit_swept.launches
     gpu = p21.run_coeval(inputs, 10.5, initial_conditions=ics_gpu)
+    if deposit.cic_deposit_swept.launches != launches + 1:
+        raise AssertionError(f"{label}: the coeval on the card did not launch the deposit kernel once")
     dens_c, dens_g = cpu.density, gpu.density.cpu()
     d_err = (dens_c - dens_g).abs().max().item()
     xh_c, xh_g = cpu.neutral_fraction, gpu.neutral_fraction.cpu()
     flipped = ((xh_c - xh_g).abs() > 1e-3).double().mean().item()
     gx_c, gx_g = xh_c.double().mean().item(), xh_g.double().mean().item()
     tb_c, tb_g = cpu.brightness_temp.double().mean().item(), gpu.brightness_temp.double().mean().item()
-    print(f"[small] z=10.5 HII_DIM=24: density max-abs {d_err:.3e} (std {dens_c.std().item():.3f}), "
+    print(f"[small] {label} z=10.5 HII_DIM=24, velocities on {tuple(ics_gpu.vx.shape)}: "
+          f"density max-abs {d_err:.3e} (std {dens_c.std().item():.3f}), "
           f"xH {gx_g:.6f} card vs {gx_c:.6f} CPU, flipped share {flipped:.2e}, "
           f"mean Tb {tb_g:.5f} vs {tb_c:.5f} mK")
     ok = (
@@ -233,7 +373,57 @@ def small_coeval_phase():
         and abs(tb_g - tb_c) <= 0.05 + 5e-3 * abs(tb_c)
     )
     if not ok:
-        raise AssertionError("the golden-size coeval on the card disagrees with the CPU run")
+        raise AssertionError(f"the golden-size coeval on the card disagrees with the CPU run ({label})")
+    return dens_g
+
+
+def small_coeval_phase():
+    """The golden-size "simple" coeval (SWEPT deposit) on the card against the CPU."""
+    return _card_vs_cpu_coeval("simple")
+
+
+def perturb_paths_phase(dens_swept):
+    """The other integer-ratio perturb paths through the same kernel, each a
+    golden-size coeval on the card against the CPU: PERTURB_DEPOSIT="SCATTER"
+    (the same function as SWEPT, so the same field on the same density) and
+    PERTURB_ON_HIGH_RES (ratio 1 onto the hires grid, then filter and
+    subsample).  Then the PERTURB_ON_HIGH_RES perturb at the main path's size,
+    384^3 onto 384^3, with the kernel's time there."""
+    import torch
+
+    import py21cmfast_torch as p21
+    from py21cmfast_torch.models import perturb
+    from py21cmfast_torch.ops import deposit
+
+    dens_scatter = _card_vs_cpu_coeval("SCATTER", PERTURB_DEPOSIT="SCATTER")
+    err = (dens_scatter - dens_swept).abs().max().item()
+    print(f"[small] SCATTER vs SWEPT density on the card: max-abs {err:.3e}")
+    if not err <= 1e-4 * dens_swept.std().item():
+        raise AssertionError("SCATTER and SWEPT give different densities on the card")
+    _card_vs_cpu_coeval("PERTURB_ON_HIGH_RES", PERTURB_ON_HIGH_RES=True)
+
+    inputs = p21.InputParameters.from_template(
+        MAIN_TEMPLATE, random_seed=SEED).evolve_input_structs(PERTURB_ON_HIGH_RES=True)
+    so = inputs.simulation_options
+    ics = p21.compute_initial_conditions(inputs)
+    p21.perturb_field(8.0, inputs, ics)
+    pf, seconds = _sync_time(lambda: p21.perturb_field(8.0, inputs, ics))
+    if tuple(pf.density.shape) != so.lowres_shape or not bool(torch.isfinite(pf.density).all()):
+        raise AssertionError("PERTURB_ON_HIGH_RES at the main path's size: bad density")
+    _, D_init, fac_za, fac_2lpt = perturb._displacement_factors(inputs, 8.0)
+    d = perturb._displacement_cells(
+        (ics.vx, ics.vy, ics.vz), (ics.vx_2LPT, ics.vy_2LPT, ics.vz_2LPT),
+        fac_za, fac_2lpt, tuple(n / L for n, L in zip(so.hires_shape, so.box_lens)),
+    )
+    d_init = float(np.float32(D_init))
+    check_deposit(ics.hires_density, d, d_init, 1, f"PERTURB_ON_HIGH_RES z=8 hires {so.hires_shape}")
+    ms = _event_median_ms(lambda: deposit.cic_deposit_swept(ics.hires_density, *d, d_init, 1), 10)
+    print(f"[hires] PERTURB_ON_HIGH_RES z=8 at {so.hires_shape} -> {so.hires_shape}: warm perturb "
+          f"{seconds * 1e3:.2f} ms wall, deposit kernel {ms:.4f} ms (median of 10 single calls), "
+          f"global-path share {global_path_share(d, 1):.3e}; byte bound "
+          f"{1e3 * 4 * 5 * ics.hires_density.numel() / PEAK_BYTES_PER_S:.4f} ms; displacement "
+          f"rms per axis {[round(x.std().item(), 3) for x in d]} hires cells, density std "
+          f"{pf.density.std().item():.5f}")
 
 
 def main_path_phase(kernels):
@@ -343,7 +533,8 @@ def main():
     card_info()
     build_kernels()
     kernels = [kernel_phase()]
-    small_coeval_phase()
+    dens_swept = small_coeval_phase()
+    perturb_paths_phase(dens_swept)
     main_path_phase(kernels)
     stage_phase()
     print(f"[total] {time.perf_counter() - t0:.1f} s")

@@ -156,8 +156,6 @@ def _compute_2lpt(d_k, hi_shape, box_lens, pt_shape, do_filter_vel):
 def check_inputs(inputs: InputParameters) -> None:
     """Raise NotImplementedError for IC options outside the port."""
     mo = inputs.matter_options
-    if mo.PERTURB_ON_HIGH_RES:
-        not_in_slice("PERTURB_ON_HIGH_RES", 5)
     if mo.V_CB_MODEL == "FLUCTS":
         not_in_slice("V_CB_MODEL='FLUCTS'", 11)
 
@@ -177,10 +175,11 @@ def compute_initial_conditions(
     mo = inputs.matter_options
     hi_shape = so.hires_shape
     lo_shape = so.lowres_shape
-    pt_shape = lo_shape
+    # the displacement fields live on the grid the perturb deposits onto
+    pt_shape = hi_shape if mo.PERTURB_ON_HIGH_RES else lo_shape
     box_lens = so.box_lens
     filter_lowres = so.dim != so.HII_DIM
-    do_filter_vel = filter_lowres
+    do_filter_vel = filter_lowres and pt_shape != hi_shape
 
     if initial_density is not None:
         hires_density = torch.as_tensor(

@@ -3,8 +3,10 @@
 Equivalent of reference PerturbedField.c:389-496 + map_mass.c:146-208,
 following py21cmfast_tpu/models/perturb.py.  The hires IC "particles" (one per
 hires cell, mass 1 + delta*D_init) are moved by the (2)LPT displacement and
-CIC-deposited on the lowres grid by the swept deposit (ops/deposit.py: the
-hand-written CUDA kernel on the card).
+CIC-deposited by the swept deposit (ops/deposit.py: the hand-written CUDA
+kernel on the card): onto the lowres grid at the integer ratio DIM/HII_DIM,
+or with PERTURB_ON_HIGH_RES onto the hires grid itself (ratio 1), which is
+then tophat-filtered and subsampled to lowres.
 
 Normalization chain:
   grid = CIC(1 + delta_hi * D_init)            [sum of masses per cell]
@@ -20,12 +22,12 @@ import numpy as np
 import torch
 
 from .._device import not_in_slice, resolve_device
-from ..cosmology.constants import FRACT_FLOAT_ERR
+from ..cosmology.constants import FRACT_FLOAT_ERR, physconst
 from ..inputs import InputParameters
 from ..ops import deposit, fft, filters, grids
 from ..outputs import InitialConditions, PerturbedField
 
-__all__ = ["perturb_field", "uses_swept_deposit"]
+__all__ = ["perturb_field"]
 
 _f32 = np.float32
 
@@ -56,31 +58,20 @@ def _displacement_cells(vel, vel_2lpt, fac_za, fac_2lpt, cells_per_mpc):
     return tuple(out)
 
 
-def uses_swept_deposit(inputs: InputParameters) -> bool:
-    """True when perturb_field takes the swept deposit, i.e. a displaced
-    perturb on the lowres grid with an integer DIM/HII_DIM on every axis."""
+def check_inputs(inputs: InputParameters) -> None:
+    """Raise NotImplementedError for perturb options outside the port: a
+    displaced perturb onto the lowres grid with a non-integer DIM/HII_DIM
+    (the deposit kernel takes one integer ratio for all axes)."""
     so = inputs.simulation_options
     mo = inputs.matter_options
     hi_shape, lo_shape = so.hires_shape, so.lowres_shape
-    ratio_int = hi_shape[0] // lo_shape[0]
-    return (
+    ratio = hi_shape[0] // lo_shape[0]
+    if (
         mo.PERTURB_ALGORITHM != "LINEAR"
-        and mo.PERTURB_DEPOSIT == "SWEPT"
         and not mo.PERTURB_ON_HIGH_RES
-        and all(h == ratio_int * l for h, l in zip(hi_shape, lo_shape))
-    )
-
-
-def check_inputs(inputs: InputParameters) -> None:
-    """Raise NotImplementedError for perturb options outside the port."""
-    mo = inputs.matter_options
-    if mo.PERTURB_ON_HIGH_RES:
-        not_in_slice("PERTURB_ON_HIGH_RES", 5)
-    if mo.PERTURB_ALGORITHM != "LINEAR" and not uses_swept_deposit(inputs):
-        not_in_slice(
-            f"PERTURB_DEPOSIT={mo.PERTURB_DEPOSIT!r} with DIM/HII_DIM = "
-            f"{inputs.simulation_options.hires_to_lowres_factor}", 5,
-        )
+        and any(h != ratio * l for h, l in zip(hi_shape, lo_shape))
+    ):
+        not_in_slice(f"a displaced perturb with DIM/HII_DIM = {so.hires_to_lowres_factor}", 5)
 
 
 def _finalize_density_and_velocity(
@@ -122,6 +113,8 @@ def perturb_field(
     cosmo = inputs.cosmology
     hi_shape = so.hires_shape
     lo_shape = so.lowres_shape
+    # the grid the particles are deposited on, where the ICs' velocities live
+    pt_shape = hi_shape if mo.PERTURB_ON_HIGH_RES else lo_shape
     box_lens = so.box_lens
 
     D, D_init, fac_za, fac_2lpt = _displacement_factors(inputs, redshift)
@@ -131,8 +124,11 @@ def perturb_field(
         grid_1pd = ics.lowres_density.to(dev) * float(_f32(D)) + 1.0
         mass_factor = 1.0
     else:
-        ratio = hi_shape[0] // lo_shape[0]
-        cells_per_mpc = tuple(lo_shape[a] / box_lens[a] for a in range(3))
+        # PERTURB_DEPOSIT "SWEPT" and "SCATTER" name two TPU schedules of one
+        # function at an integer ratio: hires cell h lands at h/R + d(c(h)),
+        # which is the swept c + s/R + d(c).  Both take the one kernel.
+        ratio = hi_shape[0] // pt_shape[0]
+        cells_per_mpc = tuple(pt_shape[a] / box_lens[a] for a in range(3))
         use_2lpt = mo.PERTURB_ALGORITHM == "2LPT" and ics.vx_2LPT is not None
         vel = tuple(v.to(dev) for v in (ics.vx, ics.vy, ics.vz))
         vel_2lpt = (
@@ -143,7 +139,16 @@ def perturb_field(
         grid_1pd = deposit.cic_deposit_swept(
             ics.hires_density.to(dev).contiguous(), *d_fields, float(_f32(D_init)), ratio
         )
-        mass_factor = float(_f32(np.prod(lo_shape) / np.prod(hi_shape)))
+        mass_factor = float(_f32(np.prod(pt_shape) / np.prod(hi_shape)))
+        if pt_shape != lo_shape:
+            # deposited on the hires grid: tophat-filter (1+delta) at the
+            # lowres cell scale and subsample before the normalization
+            d_k = filters.filter_kbox(
+                fft.rfft3(grid_1pd), grids.kmag_grid(pt_shape, box_lens, dev), filters.TOPHAT,
+                float(_f32(physconst.l_factor * box_lens[0] / lo_shape[0])),
+            )
+            grid_1pd = grids.subsample(fft.irfft3(d_k, pt_shape), lo_shape)
+            mass_factor = 1.0
 
     delta, v_x, v_y, v_z = _finalize_density_and_velocity(
         grid_1pd,

@@ -90,12 +90,12 @@ def cic_deposit_swept(hires, dx, dy, dz, d_init, ratio):
         "cic_deposit", "cic_deposit_swept",
         [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p],
     )
-    out = torch.zeros(lo_shape, dtype=torch.float32, device=hires.device)
+    # the C function zeroes `out` on the stream before it launches the kernel
+    out = torch.empty(lo_shape, dtype=torch.float32, device=hires.device)
     with torch.cuda.device(hires.device):
-        stream = torch.cuda.current_stream().cuda_stream
         err = fn(
             hires.data_ptr(), dx.data_ptr(), dy.data_ptr(), dz.data_ptr(), out.data_ptr(),
-            *lo_shape, int(ratio), float(d_init), stream,
+            *lo_shape, int(ratio), float(d_init), torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"cic_deposit_swept kernel launch failed: cudaError {err}")

@@ -93,6 +93,23 @@ def test_plain_deposit_noncubic_matches_scatter(R):
     assert np.isclose(got.astype(np.float64).sum(), (1.0 + hires.astype(np.float64) * D_INIT).sum(), rtol=1e-6)
 
 
+def test_plain_deposit_ratio_one_on_hires_grid_matches_scatter():
+    """R = 1, the PERTURB_ON_HIGH_RES shape: the out grid is the hires grid
+    itself, every particle sits at its own cell plus its own displacement."""
+    rng = np.random.default_rng(17)
+    nh = (12, 10, 14)
+    hires = rng.normal(0, 0.2, nh).astype(np.float32)
+    d_cells = [rng.normal(0, 1.5, nh).astype(np.float32) for _ in range(3)]
+    got = _port(hires, d_cells, 1)
+    assert got.shape == nh
+    np.testing.assert_allclose(got, _jax_scatter(hires, d_cells, 1), rtol=0, atol=ATOL)
+    pos = [g + d for g, d in zip(np.meshgrid(*(np.arange(n, dtype=np.float32) for n in nh), indexing="ij"), d_cells)]
+    direct = jcic.cic_scatter_flat(
+        jnp.zeros(int(np.prod(nh)), jnp.float32), *(jnp.asarray(p.ravel()) for p in pos),
+        jnp.asarray((1.0 + hires * D_INIT).ravel()), nh)
+    np.testing.assert_allclose(got, np.asarray(direct).reshape(nh), rtol=0, atol=ATOL)
+
+
 def test_cpu_call_does_not_count_a_launch():
     hires, psi = _case(2, nl=4)
     tdep.cic_deposit_swept.launches = 0
@@ -129,13 +146,34 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# (lowres shape, ratio, mean and sigma of the displacement in cells, sigma of
+# the hires density, taken positive): extents
+# below the kernel's shared tile and off its brick's multiples, R = 1, even
+# and odd R, a ratio without a compiled-in loop, zero displacement, negative
+# positions, and displacements that send most deposits past the tile
+CUDA_CASES = [
+    *(((16, 16, 24), R, 0.0, 2.0, 0.3) for R in (1, 2, 3, 4, 5)),
+    ((4, 6, 10), 2, 0.0, 2.0, 0.3),
+    ((4, 6, 10), 3, 0.0, 2.0, 0.3),
+    ((24, 24, 24), 3, 0.0, 0.6, 0.3),
+    ((20, 17, 33), 2, 0.0, 0.0, 0.3),
+    ((20, 17, 33), 3, -7.5, 1.0, 0.3),
+    ((40, 24, 36), 1, 0.0, 6.0, 0.3),
+    ((40, 24, 36), 2, 0.0, 6.0, 0.3),
+    ((40, 24, 36), 3, 0.0, 6.0, 0.3),
+    ((40, 24, 36), 3, 0.0, 12.0, 0.3),
+    # heavy masses: cells of the fixed-point tile wrap, heavy channels go global
+    ((20, 17, 33), 1, 0.0, 0.6, 180.0),
+    ((20, 17, 33), 3, 0.0, 0.6, 180.0),
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("R", [1, 2, 3, 4])
-def test_cuda_kernel_matches_plain(cuda_device, R):
+@pytest.mark.parametrize("nl, R, mu, sigma, amp", CUDA_CASES)
+def test_cuda_kernel_matches_plain(cuda_device, nl, R, mu, sigma, amp):
     rng = np.random.default_rng(R)
-    nl = (16, 16, 24)
-    hires = torch.from_numpy(rng.normal(0, 0.3, tuple(R * n for n in nl)).astype(np.float32))
-    d = [torch.from_numpy(rng.normal(0, 2.0, nl).astype(np.float32)) for _ in range(3)]
+    hires = torch.from_numpy(np.abs(rng.normal(0, amp, tuple(R * n for n in nl))).astype(np.float32))
+    d = [torch.from_numpy(rng.normal(mu, sigma, nl).astype(np.float32)) for _ in range(3)]
     plain = tdep.cic_deposit_swept_plain(hires, *d, D_INIT, R)
     before = tdep.cic_deposit_swept.launches
     got = tdep.cic_deposit_swept(*(t.to(cuda_device) for t in (hires, *d)), D_INIT, R)
@@ -145,3 +183,15 @@ def test_cuda_kernel_matches_plain(cuda_device, R):
     # of the mean mass where the cell holds less (chip_smoke.check_deposit)
     rel = (got.cpu() - plain).abs() / torch.clamp_min(plain, plain.mean().item())
     assert rel.max().item() <= 1e-5
+    total = (1.0 + hires.double() * D_INIT).sum().item()
+    assert abs(got.double().sum().item() - total) <= 1e-6 * total
+
+
+def test_cuda_tensor_never_reaches_the_plain_version(monkeypatch):
+    """On a CUDA tensor the wrapper launches the kernel or raises: here the
+    device check is reached with a meta tensor, which is neither."""
+    hires = torch.zeros(8, 8, 8, device="meta")
+    d = [torch.zeros(4, 4, 4, device="meta") for _ in range(3)]
+    monkeypatch.setattr(tdep, "cic_deposit_swept_plain", lambda *a: pytest.fail("plain version called"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        tdep.cic_deposit_swept(hires, *d, D_INIT, 2)

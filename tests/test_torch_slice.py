@@ -279,8 +279,6 @@ def test_entry_points_default_to_cuda(no_cuda, call):
         dict(SOURCE_MODEL="L-INTEGRAL"),
         dict(SOURCE_MODEL="CHMF-SAMPLER"),
         dict(PHOTON_CONS_TYPE="Z-PHOTONCONS"),
-        dict(PERTURB_DEPOSIT="SCATTER"),
-        dict(PERTURB_ON_HIGH_RES=True),
         dict(DIM=20),
         dict(V_CB_MODEL="FLUCTS"),
         dict(IONISE_ENTIRE_SPHERE=True),
