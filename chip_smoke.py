@@ -17,11 +17,20 @@ Phases, in order; any failure raises and the script exits non-zero:
      the CPU, from the same hires density;
   4b. the same for PERTURB_DEPOSIT="SCATTER" and PERTURB_ON_HIGH_RES, which
      reach the same kernel, and PERTURB_ON_HIGH_RES at the main path's size;
-  5. the main path: run_coeval of the simple+size-medium template
+  4c. the golden-size evolving coeval (USE_TS_FLUCT, inhomogeneous
+     recombinations, 5 nodes down to z=10.5) on the card against the CPU:
+     Ts, Tk, x_e, N_rec, xH and Tb;
+  5. the first main path: run_coeval of the simple+size-medium template
      (HII_DIM=128, DIM=384, 256 Mpc) at z=10 and z=8, with every kernel's
      launch count zeroed just before and read just after;
   6. warm per-stage times of the same coeval, and each stage's device-busy
-     time from a second pass under torch.profiler.
+     time from a second pass under torch.profiler;
+  7. the second main path: the same template with USE_TS_FLUCT and
+     inhomogeneous recombinations, evolved down its node ladder to z=8
+     through generate_coeval, launch counts zeroed just before and read just
+     after (one deposit launch per node), with the seconds per node, the host
+     time of the Ts step and what the table prefetch hid of it;
+  8. per-stage wall and device-busy times at three nodes of that scroll.
 The line before the last is a JSON object of kernel numbers; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero and
 prints no result.
@@ -333,13 +342,17 @@ def kernel_phase():
     }
 
 
-def _card_vs_cpu_coeval(label, **over):
+def _card_vs_cpu_coeval(label, nodes=False, **over):
     """A golden-size coeval on the card against the CPU, both from the same
-    hires density (the two generators draw different noise)."""
+    hires density (the two generators draw different noise).  With `nodes`
+    the coeval evolves down the golden ladder (25 -> 10.5, 5 nodes)."""
     import py21cmfast_torch as p21
     from py21cmfast_torch.ops import deposit
 
     inputs = p21.InputParameters(random_seed=SEED).evolve_input_structs(**GOLDEN_SIZE, **over)
+    if nodes:
+        inputs = inputs.with_logspaced_redshifts(10.5, 25.0)
+    n_nodes = max(1, len(inputs.node_redshifts))
     ics_cpu = p21.compute_initial_conditions(inputs, device="cpu")
     ics_gpu = p21.compute_initial_conditions(
         inputs, initial_density=ics_cpu.hires_density.numpy()
@@ -354,8 +367,9 @@ def _card_vs_cpu_coeval(label, **over):
     cpu = p21.run_coeval(inputs, 10.5, initial_conditions=ics_cpu, device="cpu")
     launches = deposit.cic_deposit_swept.launches
     gpu = p21.run_coeval(inputs, 10.5, initial_conditions=ics_gpu)
-    if deposit.cic_deposit_swept.launches != launches + 1:
-        raise AssertionError(f"{label}: the coeval on the card did not launch the deposit kernel once")
+    if deposit.cic_deposit_swept.launches != launches + n_nodes:
+        raise AssertionError(
+            f"{label}: the coeval on the card did not launch the deposit kernel once per node")
     dens_c, dens_g = cpu.density, gpu.density.cpu()
     d_err = (dens_c - dens_g).abs().max().item()
     xh_c, xh_g = cpu.neutral_fraction, gpu.neutral_fraction.cpu()
@@ -374,7 +388,38 @@ def _card_vs_cpu_coeval(label, **over):
     )
     if not ok:
         raise AssertionError(f"the golden-size coeval on the card disagrees with the CPU run ({label})")
+    if gpu.spin_temp is not None:
+        _card_vs_cpu_thermal(label, cpu, gpu)
     return dens_g
+
+
+def _card_vs_cpu_thermal(label, cpu, gpu):
+    """Ts, Tk, x_e of the last node, card against CPU: every cell within 1e-3
+    of its own value and the mean within 1e-4 (float32 chains of 5 nodes
+    through two FFT and two math libraries).  N_rec: mean within 5e-3, and at
+    most 1e-3 of the cells differ by more than 1e-3 of the maximum (a cell's
+    row of the rate table is the nearest neighbour in z_eff, and thresholded
+    xH multiplies the increment)."""
+    for name in ("spin_temperature", "kinetic_temp_neutral", "xray_ionised_fraction"):
+        c = getattr(cpu.spin_temp, name).double()
+        g = getattr(gpu.spin_temp, name).cpu().double()
+        rel = ((c - g).abs() / c.abs()).max().item()
+        mean_rel = abs(g.mean().item() - c.mean().item()) / abs(c.mean().item())
+        print(f"[small] {label} {name}: mean {g.mean().item():.6g} card vs {c.mean().item():.6g} CPU "
+              f"(rel {mean_rel:.2e}, limit 1e-4), worst cell rel {rel:.2e} (limit 1e-3)")
+        if not (rel <= 1e-3 and mean_rel <= 1e-4):
+            raise AssertionError(f"{label}: {name} on the card disagrees with the CPU run")
+    c = cpu.ionized_box.cumulative_recombinations
+    g = gpu.ionized_box.cumulative_recombinations
+    if c is not None:
+        c, g = c.double(), g.cpu().double()
+        mean_rel = abs(g.mean().item() - c.mean().item()) / abs(c.mean().item())
+        share = ((c - g).abs() > 1e-3 * c.max()).double().mean().item()
+        print(f"[small] {label} N_rec: mean {g.mean().item():.6g} card vs {c.mean().item():.6g} CPU "
+              f"(rel {mean_rel:.2e}, limit 5e-3), max {c.max().item():.4g}, share of cells off by "
+              f"> 1e-3 max {share:.2e} (limit 1e-3)")
+        if not (mean_rel <= 5e-3 and share <= 1e-3):
+            raise AssertionError(f"{label}: N_rec on the card disagrees with the CPU run")
 
 
 def small_coeval_phase():
@@ -426,6 +471,28 @@ def perturb_paths_phase(dens_swept):
           f"{pf.density.std().item():.5f}")
 
 
+def evolving_small_phase():
+    """The golden-size evolving coeval with a spin temperature and
+    inhomogeneous recombinations (the golden "ts" and "inhomo" options
+    together) on the card against the CPU."""
+    _card_vs_cpu_coeval(
+        "USE_TS_FLUCT+INHOMOGENEOUS", nodes=True,
+        USE_TS_FLUCT=True, RECOMB_MODEL="INHOMOGENEOUS", R_BUBBLE_MAX=20.0)
+
+
+def _check_fields(z, lo, *structs):
+    """Every grid of the structs has the lowres shape, lies on the card and is finite."""
+    import torch
+
+    for struct in structs:
+        for name, v in vars(struct).items():
+            if isinstance(v, torch.Tensor):
+                if tuple(v.shape) != lo or not v.is_cuda:
+                    raise AssertionError(f"{name} at z={z}: {tuple(v.shape)} on {v.device}")
+                if not bool(torch.isfinite(v).all()):
+                    raise AssertionError(f"{name} at z={z} is not finite")
+
+
 def main_path_phase(kernels):
     """run_coeval of the main path; launch counts zeroed just before."""
     import torch
@@ -444,8 +511,8 @@ def main_path_phase(kernels):
           f"(first call), launches {launches}, peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     for k in kernels:
-        k["launches"] = launches[k["name"]]
-        if k["launches"] < 1:
+        k["launches_by_path"] = {"simple": launches[k["name"]]}
+        if launches[k["name"]] < 1:
             raise AssertionError(f"the main path never launched {k['name']}")
     if launches["cic_deposit_swept"] != len(MAIN_REDSHIFTS):
         raise AssertionError(f"expected {len(MAIN_REDSHIFTS)} deposit launches, got {launches}")
@@ -453,13 +520,7 @@ def main_path_phase(kernels):
     lo = inputs.simulation_options.lowres_shape
     xh = {}
     for cv in coevals:
-        for struct in (cv.perturbed_field, cv.ionized_box, cv.brightness_temperature):
-            for name, v in vars(struct).items():
-                if isinstance(v, torch.Tensor):
-                    if tuple(v.shape) != lo or not v.is_cuda:
-                        raise AssertionError(f"{name} at z={cv.redshift}: {tuple(v.shape)} on {v.device}")
-                    if not bool(torch.isfinite(v).all()):
-                        raise AssertionError(f"{name} at z={cv.redshift} is not finite")
+        _check_fields(cv.redshift, lo, cv.perturbed_field, cv.ionized_box, cv.brightness_temperature)
         x = cv.neutral_fraction
         if not (0.0 <= x.min().item() and x.max().item() <= 1.0):
             raise AssertionError(f"xH out of [0, 1] at z={cv.redshift}")
@@ -474,16 +535,21 @@ def main_path_phase(kernels):
 def _device_busy_ms(fn):
     """Run `fn` under torch.profiler; return the union of its device
     activity intervals in ms and the three busiest kernels, or None where
-    the profiler recorded no device activity."""
+    the profiler recorded no device activity.  A one-element fill runs first
+    inside the profile and is left out of the sums: the tracer may drop the
+    first device events of a window (seen once: a perturb whose deposit
+    kernel was missing from the trace)."""
+    import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.zeros(1, device="cuda")
         _sync_time(fn)
     spans = sorted(
         (e.time_range.start, e.time_range.end, e.name)
         for e in prof.events() if e.device_type == DeviceType.CUDA
-    )
+    )[1:]
     if not spans:
         return None
     busy, end, by_name = 0.0, -np.inf, {}
@@ -522,6 +588,195 @@ def stage_phase():
         print(f"[stages] {name}: {wall * 1e3:.2f} ms wall; {busy_txt}")
 
 
+SCROLL_OPTIONS = dict(
+    USE_TS_FLUCT=True, RECOMB_MODEL="INHOMOGENEOUS", CELL_RECOMB=False, R_BUBBLE_MAX=50.0,
+    N_STEP_TS=40, R_MAX_TS=500.0,
+)
+SCROLL_Z_END = 8.0
+
+
+def _scroll_inputs():
+    import py21cmfast_torch as p21
+
+    return p21.InputParameters.from_template(
+        MAIN_TEMPLATE, random_seed=SEED
+    ).evolve_input_structs(**SCROLL_OPTIONS).with_logspaced_redshifts(SCROLL_Z_END)
+
+
+def scroll_phase(kernels):
+    """The evolving coeval at full width: generate_coeval yields every node of
+    the ladder down to z=8; launch counts zeroed just before.  Returns the
+    inputs, the ICs and, for three sample nodes, what the node was computed
+    from (for the per-stage pass)."""
+    import torch
+
+    import py21cmfast_torch as p21
+    from py21cmfast_torch.drivers.coeval import _slim_chain_ion
+    from py21cmfast_torch.models import spintemp
+    from py21cmfast_torch.ops import deposit
+
+    wrappers = {"cic_deposit_swept": deposit.cic_deposit_swept}
+    inputs = _scroll_inputs()
+    so = inputs.simulation_options
+    nodes = list(inputs.node_redshifts)
+    evolving = [i for i, z in enumerate(nodes) if z < so.Z_HEAT_MAX and i > 0]
+    sample_at = {evolving[0], evolving[len(evolving) // 2], len(nodes) - 1}
+    print(f"[scroll] {MAIN_TEMPLATE} + {SCROLL_OPTIONS}, ZPRIME_STEP_FACTOR "
+          f"{so.ZPRIME_STEP_FACTOR}, Z_HEAT_MAX {so.Z_HEAT_MAX}: {len(nodes)} nodes "
+          f"{nodes[0]:.3f} -> {nodes[-1]:.3f}")
+
+    # host seconds inside each Ts step (no synchronisation added)
+    ts_host = []
+    compute_ts = spintemp.compute_spin_temperature
+
+    def timed_ts(*a, **kw):
+        t0 = time.perf_counter()
+        out = compute_ts(*a, **kw)
+        ts_host.append(time.perf_counter() - t0)
+        return out
+
+    stats = spintemp._SFRD_PREFETCH["stats"]
+    stats.update(build_s=0.0, wait_s=0.0)
+    torch.cuda.reset_peak_memory_stats()
+    for w in wrappers.values():
+        w.launches = 0
+    spintemp.compute_spin_temperature = timed_ts
+    seconds, means, samples, prev, ics = [], [], {}, None, None
+    try:
+        torch.cuda.synchronize()
+        t_start = t0 = time.perf_counter()
+        for i, cv in enumerate(p21.generate_coeval(inputs)):
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            if cv.redshift != nodes[i]:
+                raise AssertionError(f"node {i}: yielded z={cv.redshift}, expected {nodes[i]}")
+            ics = cv.initial_conditions
+            _check_fields(cv.redshift, so.lowres_shape, cv.perturbed_field, cv.spin_temp,
+                          cv.ionized_box, cv.brightness_temperature)
+            ts = cv.spin_temp
+            means.append(torch.stack([
+                cv.neutral_fraction.double().mean(), cv.brightness_temp.double().mean(),
+                ts.kinetic_temp_neutral.double().mean(), ts.spin_temperature.double().mean(),
+                ts.xray_ionised_fraction.double().mean(),
+                (cv.ionized_box.cumulative_recombinations.double().mean()
+                 if cv.ionized_box.cumulative_recombinations is not None
+                 else torch.zeros((), dtype=torch.float64, device="cuda")),
+            ]).tolist())
+            if i in sample_at:
+                samples[i] = dict(z=cv.redshift, pf=cv.perturbed_field, prev_ts=prev[0],
+                                  prev_ion=prev[1], prev_z=prev[2], ts=ts, ion=cv.ionized_box)
+            prev = (ts, _slim_chain_ion(cv.ionized_box), cv.redshift)
+            t0 = time.perf_counter()
+        total = time.perf_counter() - t_start
+    finally:
+        spintemp.compute_spin_temperature = compute_ts
+    launches = {name: w.launches for name, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    if len(seconds) != len(nodes):
+        raise AssertionError(f"{len(seconds)} coevals from {len(nodes)} nodes")
+    for k in kernels:
+        k["launches_by_path"]["scroll"] = launches[k["name"]]
+        k["launches"] = sum(k["launches_by_path"].values())
+        if launches[k["name"]] < 1:
+            raise AssertionError(f"the scroll never launched {k['name']}")
+    if launches["cic_deposit_swept"] != len(nodes):
+        raise AssertionError(f"expected {len(nodes)} deposit launches in the scroll, got {launches}")
+
+    # seconds[0] holds the ICs and everything built at first use
+    later = np.array(seconds[1:])
+    hidden = stats["build_s"] - stats["wait_s"]
+    ts_total = float(np.sum(ts_host))
+    print(f"[scroll] {len(nodes)} nodes in {total:.2f} s on the card: first node (with the ICs) "
+          f"{seconds[0]:.3f} s, then median {np.median(later):.4f} s a node "
+          f"(min {later.min():.4f}, max {later.max():.4f}); launches {launches}; peak memory "
+          f"{peak:.3f} GiB")
+    print(f"[scroll] Ts step, host seconds inside the call: total {ts_total:.2f} s, median "
+          f"{np.median(ts_host):.4f} s a node; the prefetch thread built SFRD tables for "
+          f"{stats['build_s']:.2f} s and nodes waited {stats['wait_s']:.2f} s for them: "
+          f"{hidden:.2f} s hidden, {100 * hidden / (ts_total + hidden):.1f}% of the Ts wall "
+          f"there would be without it")
+    for i in sorted({0, *sample_at, len(nodes) // 4, 3 * len(nodes) // 4}):
+        xh, tb, tk, tsp, xe, nrec = means[i]
+        print(f"[scroll] node {i:2d} z={nodes[i]:7.3f}: {seconds[i]:.4f} s, <xH> {xh:.6f}, <Tb> "
+              f"{tb:.4f} mK, <Tk> {tk:.4f} K, <Ts> {tsp:.4f} K, <x_e> {xe:.3e}, <N_rec> {nrec:.3e}")
+    xh, tb, tk, tsp, xe, nrec = means[-1]
+    tk_all = np.array([m[2] for m in means])
+    i_min = int(tk_all.argmin())
+    print(f"[scroll] z={nodes[-1]}: <xH> {xh:.6f}, <Tb> {tb:.5f} mK, <Tk> {tk:.4f} K, <Ts> "
+          f"{tsp:.4f} K; <Tk> was least at node {i_min} z={nodes[i_min]:.3f}: {tk_all[i_min]:.4f} K")
+    if not 0.0 < xh < 1.0:
+        raise AssertionError(f"<xH> at z={nodes[-1]} is {xh}")
+    if not (0 < i_min < len(nodes) - 1 and tk > 1.5 * tk_all[i_min]):
+        raise AssertionError("Tk has not passed its minimum (no heating turn-around) by the last node")
+    if not nrec > 0:
+        raise AssertionError("no recombinations were accumulated")
+    return inputs, ics, [samples[i] for i in sorted(samples)]
+
+
+def scroll_stage_phase(inputs, ics, samples):
+    """Warm, synchronised per-stage times at three nodes of the scroll, each
+    stage recomputed from the state the scroll handed it, then its
+    device-busy time from a second, profiled pass.  The Ts step is taken
+    twice: building its SFRD tables itself, and with them prefetched (the
+    build is then outside the timed call)."""
+    import py21cmfast_torch as p21
+    from py21cmfast_torch.models import spintemp
+
+    def prefetch_now(z):
+        spintemp.prefetch_sfrd_tables(z, inputs)
+        for fut in list(spintemp._SFRD_PREFETCH["futs"].values()):
+            fut.result()
+
+    for s in samples:
+        z = s["z"]
+
+        def ts_step(s=s):
+            return spintemp.compute_spin_temperature(
+                s["z"], inputs, s["pf"], prev_state=s["prev_ts"], prev_redshift=s["prev_z"])
+
+        stages = [
+            ("perturb", None, lambda z=z: p21.perturb_field(z, inputs, ics)),
+            ("Ts (builds its tables)", None, ts_step),
+            ("Ts (tables prefetched)", lambda z=z: prefetch_now(z), ts_step),
+            ("ionize", None, lambda s=s: p21.compute_ionization_field(
+                s["z"], inputs, s["pf"], previous_ionized_box=s["prev_ion"], spin_temp=s["ts"],
+                prev_redshift=s["prev_z"])),
+            ("Tb", None, lambda s=s: p21.brightness_temperature(
+                inputs, s["ion"], s["pf"], spin_temp=s["ts"])),
+        ]
+        for name, prepare, fn in stages:
+            if prepare:
+                prepare()
+            _, wall = _sync_time(fn)
+            if prepare:
+                prepare()
+            busy = _device_busy_ms(fn)
+            busy_txt = (
+                "device busy not measured (the profiler saw no device activity)" if busy is None
+                else f"device busy {busy[0]:.3f} ms ({100 * busy[0] / (wall * 1e3):.1f}% of the "
+                     f"unprofiled wall), top kernels {busy[1]}"
+            )
+            print(f"[scroll-stages] z={z:.3f} {name}: {wall * 1e3:.2f} ms wall; {busy_txt}")
+
+    # where the host's time goes in the last node's Ts and ionize steps
+    import cProfile
+    import pstats
+
+    for name, prepare, fn in stages[2:4]:
+        if prepare:
+            prepare()
+        prof = cProfile.Profile()
+        _sync_time(lambda: prof.runcall(fn))
+        st = pstats.Stats(prof)
+        total = st.total_tt
+        top = sorted(st.stats.items(), key=lambda kv: -kv[1][3])[:60]
+        ours = [(f"{k[0].rsplit('/', 1)[-1]}:{k[2]}", round(1e3 * v[3], 1)) for k, v in top
+                if "py21cmfast_torch" in k[0]][:8]
+        print(f"[scroll-host] z={z:.3f} {name}: {1e3 * total:.1f} ms under cProfile; cumulative "
+              f"ms by function of the package: {ours}")
+
+
 def main():
     import torch
 
@@ -535,8 +790,10 @@ def main():
     kernels = [kernel_phase()]
     dens_swept = small_coeval_phase()
     perturb_paths_phase(dens_swept)
+    evolving_small_phase()
     main_path_phase(kernels)
     stage_phase()
+    scroll_stage_phase(*scroll_phase(kernels))
     print(f"[total] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

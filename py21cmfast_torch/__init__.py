@@ -1,9 +1,10 @@
 """py21cmfast_torch — the PyTorch/CUDA port of py21cmfast_tpu for NVIDIA Hopper.
 
-It runs the saturated-spin-temperature coeval (ICs -> 2LPT perturb with the
-swept CIC deposit -> excursion-set ionization -> brightness temperature) with
-the JAX package's names and inputs.  Device fields are float32 tensors, host
-tables float64.  Every entry point takes `device="cuda"` and runs on the card;
+It runs the coeval (ICs -> 2LPT perturb with the swept CIC deposit ->
+excursion-set ionization -> brightness temperature), one redshift at a time
+with a saturated spin temperature or evolved down the node redshifts with
+the spin temperature and recombinations, with the JAX package's names and
+inputs.  Device fields are float32 tensors, host tables float64.  Every entry point takes `device="cuda"` and runs on the card;
 the CPU is used only when the caller passes `device="cpu"`.  Options that are
 not ported yet raise NotImplementedError naming the ROADMAP item that brings
 them.  The swept CIC deposit is a hand-written CUDA kernel
@@ -35,6 +36,7 @@ from .models.brightness import brightness_temperature
 from .models.ics import compute_initial_conditions
 from .models.ionization import compute_ionization_field
 from .models.perturb import perturb_field
+from .models.spintemp import compute_spin_temperature
 from .outputs import BrightnessTemp, InitialConditions, IonizedBox, PerturbedField, TsBox
 
 __all__ = [
@@ -57,6 +59,7 @@ __all__ = [
     "brightness_temperature",
     "compute_initial_conditions",
     "compute_ionization_field",
+    "compute_spin_temperature",
     "config",
     "create_params_from_template",
     "generate_coeval",

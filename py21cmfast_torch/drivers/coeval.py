@@ -1,9 +1,12 @@
-"""Coeval-cube driver: the snapshot pipeline without evolution.
+"""Coeval cubes: the snapshot pipeline, evolved down the node ladder.
 
 Equivalent of reference drivers/coeval.py:521-992 (`generate_coeval` /
-`run_coeval`), following py21cmfast_tpu/drivers/coeval.py for the path with
-no node redshifts and no cache: the ICs are computed once, then each requested
-redshift runs perturb -> ionize -> Tb on its own, highest redshift first.
+`run_coeval`), following py21cmfast_tpu/drivers/coeval.py without the cache
+and the halo chain: the ICs are computed once, then the union of the node
+redshifts and the requested ones is visited highest first.  Each node runs
+perturb -> Ts -> prefetch of the next node's tables -> ionize -> Tb; the
+ionized box and the spin-temperature state are handed to the next node, and
+only the requested redshifts are yielded.
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ from .._device import not_in_slice, resolve_device
 from ..exceptions import check_nonfinite
 from ..inputs import InputParameters
 from ..models import ics as ics_module
-from ..models import ionization, perturb
+from ..models import ionization, perturb, spintemp
 from ..models.brightness import brightness_temperature
 from ..outputs import BrightnessTemp, InitialConditions, IonizedBox, PerturbedField, TsBox
 
@@ -47,6 +50,25 @@ class Coeval:
         return self.perturbed_field.density
 
 
+def _slim_chain_ion(ion: IonizedBox | None):
+    """Drop the IonizedBox fields nothing downstream in the scroll reads: the
+    next snapshot only needs z_reion, ionisation_rate_G12, the mean f_coll
+    scalars and cumulative_recombinations."""
+    if ion is None:
+        return ion
+    return dataclasses.replace(
+        ion, neutral_fraction=None, mean_free_path=None, kinetic_temperature=None
+    )
+
+
+def _required_redshifts(inputs: InputParameters, out_redshifts):
+    """Union of node redshifts and requested outputs, descending
+    (reference _get_required_redshifts_coeval, coeval.py:971)."""
+    zs = set(float(z) for z in out_redshifts)
+    zs |= set(float(z) for z in inputs.node_redshifts)
+    return sorted(zs, reverse=True)
+
+
 def generate_coeval(
     inputs: InputParameters,
     out_redshifts=(),
@@ -55,34 +77,65 @@ def generate_coeval(
     *,
     device="cuda",
 ):
-    """Yield a Coeval at each requested redshift, highest first.  Every
-    snapshot's fields are checked for NaN/Inf before it is yielded."""
+    """Yield a Coeval at each requested redshift, highest first, evolving
+    down the node-redshift ladder (reference _redshift_loop_generator,
+    coeval.py:749).  Every snapshot's fields are checked for NaN/Inf."""
     dev = resolve_device(device)
     if cache is not None:
         not_in_slice("the output cache", 16)
-    if inputs.node_redshifts:
-        not_in_slice("a node-redshift scroll (node_redshifts)", 7)
+    ao = inputs.astro_options
     ics_module.check_inputs(inputs)
     perturb.check_inputs(inputs)
     ionization.check_inputs(inputs)
-    all_z = sorted({float(z) for z in np.atleast_1d(np.asarray(out_redshifts))}, reverse=True)
+    if ao.USE_TS_FLUCT:
+        spintemp.check_inputs(inputs)
+    out_redshifts = [float(z) for z in np.atleast_1d(np.asarray(out_redshifts))]
+    all_z = _required_redshifts(inputs, out_redshifts)
     if not all_z:
         raise ValueError("no redshifts requested")
 
+    needs_evolution = ao.USE_TS_FLUCT or ao.uses_recombination or inputs.node_redshifts
+
     if initial_conditions is None:
         initial_conditions = ics_module.compute_initial_conditions(inputs, device=dev)
-    for z in all_z:
+
+    prev_ion: IonizedBox | None = None
+    prev_z = None
+    ts_state = None
+    for i, z in enumerate(all_z):
         pf = perturb.perturb_field(z, inputs, initial_conditions, device=dev)
-        ion = ionization.compute_ionization_field(z, inputs, pf, device=dev)
-        tb = brightness_temperature(inputs, ion, pf, device=dev)
-        check_nonfinite(z, pf, ion, tb)
-        yield Coeval(
-            redshift=z,
-            initial_conditions=initial_conditions,
-            perturbed_field=pf,
-            ionized_box=ion,
-            brightness_temperature=tb,
+
+        ts = None
+        if ao.USE_TS_FLUCT:
+            ts, ts_state = spintemp.compute_spin_temperature(
+                z, inputs, pf, prev_state=ts_state, prev_redshift=prev_z, device=dev
+            )
+            # overlap the next node's host-side SFRD tables with this node's
+            # device work (worker thread; see spintemp.prefetch_sfrd_tables)
+            if i + 1 < len(all_z):
+                spintemp.prefetch_sfrd_tables(all_z[i + 1], inputs)
+
+        ion = ionization.compute_ionization_field(
+            z, inputs, pf, previous_ionized_box=prev_ion, spin_temp=ts,
+            prev_redshift=prev_z, device=dev,
         )
+        tb = brightness_temperature(inputs, ion, pf, spin_temp=ts, device=dev)
+        check_nonfinite(z, pf, ts, ion, tb)
+
+        if (not out_redshifts) or any(abs(z - oz) < 1e-8 for oz in out_redshifts):
+            yield Coeval(
+                redshift=z,
+                initial_conditions=initial_conditions,
+                perturbed_field=pf,
+                ionized_box=ion,
+                brightness_temperature=tb,
+                spin_temp=ts,
+            )
+
+        # keep only what the next snapshot reads; without evolution there is
+        # no coupling between snapshots
+        prev_ion = _slim_chain_ion(ion) if needs_evolution else None
+        prev_z = z
 
 
 def run_coeval(

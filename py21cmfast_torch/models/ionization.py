@@ -1,4 +1,5 @@
-"""Excursion-set ionization box (saturated spin temperature).
+"""Excursion-set ionization box, with or without a spin-temperature box and
+cumulative recombinations carried from the previous snapshot.
 
 Equivalent of reference IonisationBox.c:1344-1649, following
 py21cmfast_tpu/models/ionization.py.  The descending radius ladder
@@ -30,6 +31,7 @@ from ..inputs import InputParameters
 from ..ops import fft, filters, grids
 from ..outputs import IonizedBox, PerturbedField, TsBox
 from . import hmf
+from . import recomb as recomb_module
 
 __all__ = ["compute_ionization_field", "setup_radii"]
 
@@ -190,11 +192,16 @@ def _fcoll_at_radius(delta_r, step, *, mass_dep, use_cheby, sigma_min, growth):
 def _ionize_scan(
     delta, prev_z_reion, steps, *, shape, box_lens, hii_filter, mass_dep, use_cheby,
     track_mfp, mean_fcoll, f_limit, ion_eff, gamma_prefactor, sigma_min, growth, redshift,
+    xe_box=None, rec_box=None, filter_recomb=False,
 ):
     """Descending-R excursion-set loop.  `steps` holds the per-R scalars and
-    tables ordered largest R first."""
+    tables ordered largest R first.  `xe_box` is the x-ray ionized fraction of
+    a spin-temperature box; `rec_box` the cumulative recombinations per baryon
+    of the previous snapshot, filtered at each R when `filter_recomb`."""
     kmag = grids.kmag_grid(shape, box_lens, delta.device)
     d_k = fft.rfft3(delta)
+    xe_k = fft.rfft3(xe_box) if xe_box is not None else None
+    rec_k = fft.rfft3(rec_box) if filter_recomb else None
     n_r = len(steps)
 
     # the neutral-fraction buffer starts at 1 (reference outputs.py:1525)
@@ -206,11 +213,13 @@ def _ionize_scan(
         is_last = idx == n_r - 1
         # on the last (smallest-R) step the reference uses the UNFILTERED
         # density (copy_filter_transform, IonisationBox.c:606-633)
-        if is_last:
-            delta_r = delta
-        else:
-            delta_r = fft.irfft3(filters.filter_kbox(d_k, kmag, hii_filter, r), shape)
-        delta_r = torch.clamp_min(delta_r, -1.0 + FRACT_FLOAT_ERR)
+        def filtered(k_box, unfiltered):
+            if is_last:
+                return unfiltered
+            return fft.irfft3(filters.filter_kbox(k_box, kmag, hii_filter, r), shape)
+
+        delta_r = torch.clamp_min(filtered(d_k, delta), -1.0 + FRACT_FLOAT_ERR)
+        xe_r = torch.clamp(filtered(xe_k, xe_box), 0.0, 0.999) if xe_box is not None else 0.0
 
         fcoll = _fcoll_at_radius(
             delta_r, step, mass_dep=mass_dep, use_cheby=use_cheby,
@@ -222,7 +231,17 @@ def _ionize_scan(
         if mass_dep:
             fcoll = torch.clamp_min(fcoll, f_limit)
 
-        ionized = fcoll * ion_eff > 1.0
+        # recombinations per baryon: CELL_RECOMB uses the previous snapshot's
+        # cumulative N_rec unfiltered, otherwise N_rec is filtered at each R
+        # like the other grids (IonisationBox.c:1084-1099)
+        if filter_recomb:
+            rec = torch.clamp_min(filtered(rec_k, rec_box), 0.0) / (1.0 + delta_r)
+        elif rec_box is not None:
+            rec = rec_box / (1.0 + delta_r)
+        else:
+            rec = 0.0
+
+        ionized = fcoll * ion_eff > (1.0 - xe_r) * (1.0 + rec)
         newly = ionized & (xh > FRACT_FLOAT_ERR)
         gamma = torch.where(newly, r * (gamma_prefactor * fcoll), gamma)
         if track_mfp:
@@ -231,7 +250,7 @@ def _ionize_scan(
 
         if is_last:
             # partial ionization on the last step (IonisationBox.c:1161-1196)
-            res = torch.clamp(1.0 - fcoll * ion_eff, 0.0, 1.0)
+            res = torch.clamp(1.0 - fcoll * ion_eff - xe_r, 0.0, 1.0)
             xh = torch.where((~ionized) & (xh > TINY), res, xh)
 
     keep = torch.where(prev_z_reion >= 0, prev_z_reion, -1.0)
@@ -261,6 +280,25 @@ def _ionized_temperature(xh, z_reion, density, tk_neutral, t_re, redshift):
     return torch.where(fully, t_full, t_partial)
 
 
+def _recomb_update(
+    rec_prev, density, gamma12, xh, rr_table, ln_g_min, dln_g, dz_tab, redshift, dtdz_dz
+):
+    """dN_rec = RR(z_eff, Gamma12) |dt/dz| dz (1 - xH), z_eff from the local
+    density via (1+z_eff) = (1+z)(1+delta)^(1/3) (IonisationBox.c:1277-1335).
+    `rr_table` is a float32 tensor, the scalars float32-rounded floats."""
+    # the cube root's argument is non-negative: the density is > -1
+    z_eff = (1.0 + redshift) * torch.pow(1.0 + density, 1.0 / 3.0) - 1.0
+    n_z, n_g = rr_table.shape
+    z_idx = torch.clamp(torch.round(z_eff / dz_tab).to(torch.int64), 0, n_z - 1)
+    ln_g = torch.log(torch.clamp_min(gamma12, 1e-35))
+    t = torch.clamp((ln_g - ln_g_min) / dln_g, 0.0, n_g - 1.001)
+    i0 = t.to(torch.int64)  # t >= 0 after the clamp: truncation is a floor
+    frac = t - i0
+    rr = rr_table[z_idx, i0] * (1 - frac) + rr_table[z_idx, i0 + 1] * frac
+    rr = torch.where(ln_g < ln_g_min, 0.0, rr)
+    return rec_prev + rr * dtdz_dz * (1.0 - xh)
+
+
 _sigma_table_cache = {}
 
 
@@ -277,10 +315,6 @@ def check_inputs(inputs: InputParameters) -> None:
     """Raise NotImplementedError for ionization options outside the port."""
     mo = inputs.matter_options
     ao = inputs.astro_options
-    if ao.USE_TS_FLUCT:
-        not_in_slice("USE_TS_FLUCT", 8)
-    if ao.uses_recombination:
-        not_in_slice(f"RECOMB_MODEL={ao.RECOMB_MODEL!r}", 9)
     if ao.USE_MINI_HALOS:
         not_in_slice("USE_MINI_HALOS", 11)
     if mo.SOURCE_MODEL == "L-INTEGRAL":
@@ -299,19 +333,22 @@ def compute_ionization_field(
     perturbed_field: PerturbedField,
     previous_ionized_box: IonizedBox | None = None,
     spin_temp: TsBox | None = None,
+    prev_redshift: float | None = None,
     *,
     device="cuda",
 ) -> IonizedBox:
-    """Ionized box at `redshift` from the perturbed density (saturated Ts).
+    """Ionized box at `redshift` from the perturbed density.
 
-    `previous_ionized_box` carries z_reion forward; the fields are moved to
+    `previous_ionized_box` carries z_reion and, with a recombination model,
+    the cumulative recombinations forward (`prev_redshift` then gives the
+    step); `spin_temp` brings the x-ray ionized fraction into the criterion
+    and the neutral gas's kinetic temperature.  The fields are moved to
     `device` if they live elsewhere."""
     dev = resolve_device(device)
-    if spin_temp is not None:
-        not_in_slice("a spin-temperature box", 8)
     check_inputs(inputs)
     so = inputs.simulation_options
     mo = inputs.matter_options
+    ao = inputs.astro_options
     ap = inputs.astro_params
     cosmo = inputs.cosmology
     shape = so.lowres_shape
@@ -358,12 +395,16 @@ def compute_ionization_field(
 
     # --- early exit: nothing ionizes (IonisationBox.c:1472-1475) ------------
     if mean_fcoll * ion_eff < HII_ROUND_ERR:
-        rec_hist = RecombinationHistory(cosmo)
+        if spin_temp is not None:
+            xh = 1.0 - spin_temp.xray_ionised_fraction.to(dev)
+        else:
+            rec_hist = RecombinationHistory(cosmo)
+            xh = torch.full(
+                shape, float(1.0 - rec_hist.x_e(redshift)), dtype=torch.float32, device=dev
+            )
         return IonizedBox(
             redshift=np.float32(redshift),
-            neutral_fraction=torch.full(
-                shape, float(1.0 - rec_hist.x_e(redshift)), dtype=torch.float32, device=dev
-            ),
+            neutral_fraction=xh,
             z_reion=prev_z_reion,
             ionisation_rate_G12=torch.zeros(shape, dtype=torch.float32, device=dev),
             mean_f_coll=np.float32(mean_fcoll),
@@ -399,6 +440,16 @@ def compute_ionization_field(
     if mass_dep:
         gamma_prefactor /= sc.t_h * sc.t_star
 
+    use_recomb = ao.uses_recombination
+    rec_box = None
+    if use_recomb:
+        if previous_ionized_box is not None and (
+            previous_ionized_box.cumulative_recombinations is not None
+        ):
+            rec_box = previous_ionized_box.cumulative_recombinations.to(dev)
+        else:
+            rec_box = torch.zeros(shape, dtype=torch.float32, device=dev)
+
     # descending order (largest R first); every scalar rounded to float32
     steps = []
     for i in np.argsort(ladder.R)[::-1]:
@@ -433,17 +484,52 @@ def compute_ionization_field(
         sigma_min=_f32(sigma_min),
         growth=_f32(growth),
         redshift=float(_f32(redshift)),
+        xe_box=spin_temp.xray_ionised_fraction.to(dev) if spin_temp is not None else None,
+        rec_box=rec_box,
+        filter_recomb=use_recomb and not ao.CELL_RECOMB,
     )
+
+    # --- cumulative recombination update (set_recombination_rates:1258-1342) ---
+    cumulative_rec = None
+    if use_recomb:
+        rt = recomb_module.get_recomb_tables(cosmo)
+        if prev_redshift is None or prev_redshift < 1:
+            dz = (1.0 + redshift) * (so.ZPRIME_STEP_FACTOR - 1.0)
+        else:
+            dz = prev_redshift - redshift
+        fabs_dtdz = abs(float(cosmo.dtdz(redshift))) / 1e15
+        if ao.RECOMB_MODEL == "INHOMOGENEOUS":
+            cumulative_rec = _recomb_update(
+                rec_box, density, gamma, xh,
+                torch.as_tensor(np.asarray(rt.table, np.float32), device=dev),
+                float(_f32(rt.ln_gamma[0])),
+                float(_f32(recomb_module.RR_DEL_LNGAMMA)),
+                float(_f32(recomb_module.RR_DEL_Z)),
+                float(_f32(redshift)),
+                float(_f32(fabs_dtdz * dz)),
+            )
+        else:  # homogeneous: single global rate broadcast
+            global_xh, global_gamma = torch.stack([xh.double().mean(), gamma.double().mean()]).tolist()
+            d_nrec = (
+                rt.evaluate(redshift, max(global_gamma, 1e-30))[0]
+                * fabs_dtdz
+                * dz
+                * (1.0 - global_xh)
+            )
+            cumulative_rec = rec_box + float(_f32(d_nrec))
 
     # kinetic temperature of the (partially) ionized IGM (reference
     # set_ionized_temperatures, IonisationBox.c:1203-1257).  MINIMIZE_MEMORY
     # drops it and the per-cell mean free path (IonisationBox.c:543,1137,1589).
     kinetic_temperature = None
     if not mo.MINIMIZE_MEMORY:
-        rec_hist = RecombinationHistory(cosmo)
-        tk_neutral = float(_f32(rec_hist.Tk(redshift))) * (
-            1.0 + float(_f32(rec_hist.cT_approx(redshift))) * density
-        )
+        if spin_temp is not None:
+            tk_neutral = spin_temp.kinetic_temp_neutral.to(dev)
+        else:
+            rec_hist = RecombinationHistory(cosmo)
+            tk_neutral = float(_f32(rec_hist.Tk(redshift))) * (
+                1.0 + float(_f32(rec_hist.cT_approx(redshift))) * density
+            )
 
         def scalar(v):
             return torch.tensor(v, dtype=torch.float32, device=dev)
@@ -463,4 +549,5 @@ def compute_ionization_field(
         log10_Mturnover_MINI_ave=np.float32(0.0),
         kinetic_temperature=kinetic_temperature,
         mean_free_path=mfp,
+        cumulative_recombinations=cumulative_rec,
     )

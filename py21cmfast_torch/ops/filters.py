@@ -9,7 +9,7 @@ the three that the saturated-Ts coeval uses:
   2: gaussian (width 0.643/R)           W = exp(-0.643^2 (kR)^2/2)
 
 The exponential-MFP (3), shell (4) and multiple-scattering (5) windows come
-with the spin-temperature and Lagrangian-source slices.
+with the Lagrangian-source slice.
 """
 
 from __future__ import annotations
@@ -48,7 +48,7 @@ def filter_weights(kmag, filter_type: int, R):
     if filter_type == GAUSSIAN:
         return w_gaussian_sq((kmag * R) ** 2)
     if filter_type in (EXP_MFP, SHELL):
-        not_in_slice(f"filter type {filter_type} (exp-MFP / shell)", 8)
+        not_in_slice(f"filter type {filter_type} (exp-MFP / shell)", 12)
     raise ValueError(f"unknown filter type {filter_type}")
 
 

@@ -273,8 +273,8 @@ def test_entry_points_default_to_cuda(no_cuda, call):
 @pytest.mark.parametrize(
     "over",
     [
-        dict(USE_TS_FLUCT=True),
-        dict(RECOMB_MODEL="INHOMOGENEOUS", R_BUBBLE_MAX=15.0),
+        dict(USE_TS_FLUCT=True, USE_MINI_HALOS=True),
+        dict(USE_TS_FLUCT=True, RECOMB_MODEL="HOMOGENEOUS", SOURCE_MODEL="DEXM-ESF"),
         dict(USE_MINI_HALOS=True),
         dict(SOURCE_MODEL="L-INTEGRAL"),
         dict(SOURCE_MODEL="CHMF-SAMPLER"),
@@ -293,9 +293,16 @@ def test_options_outside_the_slice_raise(over):
 
 
 def test_cache_and_node_scroll_raise():
+    """The cache still raises, with and without a node ladder; the node
+    scroll itself runs (tests/test_torch_scroll.py), and a Lagrangian source
+    box handed to its Ts step raises."""
+    from py21cmfast_torch.models import spintemp as tspin
+
     inp = t21.InputParameters(random_seed=1).evolve_input_structs(
         HII_DIM=8, DIM=16, BOX_LEN=16.0, SOURCE_MODEL="E-INTEGRAL")
     with pytest.raises(NotImplementedError, match="cache"):
         t21.run_coeval(inp, 8.0, cache=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="node_redshifts"):
-        t21.run_coeval(inp.with_logspaced_redshifts(8.0, 12.0), 8.0, device="cpu")
+    with pytest.raises(NotImplementedError, match="cache"):
+        t21.run_coeval(inp.with_logspaced_redshifts(8.0, 12.0), 8.0, cache=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="XraySourceBox"):
+        tspin.compute_spin_temperature(8.0, inp, None, source_box=object(), device="cpu")
