@@ -10,9 +10,11 @@ Phases, in order; any failure raises and the script exits non-zero:
   2. build every CUDA kernel in py21cmfast_torch/csrc (one nvcc per source,
      in parallel), with ptxas's register report;
   3. each kernel against its plain PyTorch version on the card: edge cases
-     and the main path's own inputs, with CUDA-event timings of the kernel
-     and its plain version, and the share of the deposits that bypass the
-     kernel's shared-memory tile;
+     and the perturb's own inputs at the simple coeval's shape (384^3 ->
+     128^3) and at the headline lightcone's (768^3 -> 256^3, whose ICs are
+     computed and timed here), with CUDA-event timings of the kernel and its
+     plain version, and the share of the deposits that bypass the kernel's
+     shared-memory tile;
   4. a golden-size coeval (HII_DIM=24) on the card against the same coeval on
      the CPU, from the same hires density;
   4b. the same for PERTURB_DEPOSIT="SCATTER" and PERTURB_ON_HIGH_RES, which
@@ -20,6 +22,10 @@ Phases, in order; any failure raises and the script exits non-zero:
   4c. the golden-size evolving coeval (USE_TS_FLUCT, inhomogeneous
      recombinations, 5 nodes down to z=10.5) on the card against the CPU:
      Ts, Tk, x_e, N_rec, xH and Tb;
+  4d. golden-size lightcones with dvdr and RSDs (the golden "lightcone"
+     configuration, saturated Ts, z=14.6 -> 9; and USE_TS_FLUCT +
+     INHOMOGENEOUS, 5 nodes) on the card against the CPU: every cone per
+     cell, the global quantities per node and the slices written;
   5. the first main path: run_coeval of the simple+size-medium template
      (HII_DIM=128, DIM=384, 256 Mpc) at z=10 and z=8, with every kernel's
      launch count zeroed just before and read just after;
@@ -30,7 +36,15 @@ Phases, in order; any failure raises and the script exits non-zero:
      through generate_coeval, launch counts zeroed just before and read just
      after (one deposit launch per node), with the seconds per node, the host
      time of the Ts step and what the table prefetch hid of it;
-  8. per-stage wall and device-busy times at three nodes of that scroll.
+  8. per-stage wall and device-busy times at three nodes of that scroll;
+  9. the third main path, the repo's headline lightcone (bench.py:73-91:
+     HII_DIM=256, DIM=768, BOX_LEN=384, USE_TS_FLUCT, inhomogeneous
+     recombinations, 92 nodes from z=35.37 to z=5, 2566 slices) through
+     generate_lightcone with the velocity-gradient correction and RSDs,
+     launch counts zeroed just before and read just after (one deposit
+     launch per node): seconds per node, the finalization's steps with their
+     device-busy times, peak memory, a fully written finite cone, and the
+     stages of the node nearest z=8.
 The line before the last is a JSON object of kernel numbers; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero and
 prints no result.
@@ -234,49 +248,16 @@ DEPOSIT_CASES = [
 ]
 
 
-def kernel_phase():
-    """The edge cases, then the main path's own z=8 inputs with timings of
-    the kernel and its plain version."""
+def _time_deposit(hires, d, d_init, ratio, label, reps=20):
+    """Kernel against plain at one shape, then CUDA-event timings: the
+    kernel's median of single calls (each between its own pair of events, so
+    it holds the host's time to enqueue one call), a call in a run of 50, the
+    host's time a call, the plain version's median, and the bound."""
     import torch
 
-    import py21cmfast_torch as p21
-    from py21cmfast_torch.models import perturb
     from py21cmfast_torch.ops import deposit
 
-    dev = torch.device("cuda")
-    rng = np.random.default_rng(SEED)
-    for lo, ratios, mu, sigma in DEPOSIT_CASES:
-        for R in ratios:
-            hires = torch.from_numpy(
-                rng.normal(0, 0.3, tuple(R * n for n in lo)).astype(np.float32)).to(dev)
-            d = [torch.from_numpy(rng.normal(mu, sigma, lo).astype(np.float32)).to(dev)
-                 for _ in range(3)]
-            check_deposit(hires, d, 0.5, R, f"R={R} lowres {lo}, d ~ N({mu}, {sigma}) cells")
-    # masses of ~70 R^3 per channel: cells of the fixed-point tile wrap past
-    # 2^31 units (256 mean cell masses), and the heaviest channels exceed what
-    # a thread may convert and take the global path
-    for R in (1, 3):
-        lo = (20, 17, 33)
-        hires = torch.from_numpy(
-            np.abs(rng.normal(0, 180.0, tuple(R * n for n in lo))).astype(np.float32)).to(dev)
-        d = [torch.from_numpy(rng.normal(0, 0.6, lo).astype(np.float32)).to(dev) for _ in range(3)]
-        check_deposit(hires, d, 0.5, R, f"R={R} lowres {lo}, heavy masses")
-
-    inputs = p21.InputParameters.from_template(MAIN_TEMPLATE, random_seed=SEED)
-    so = inputs.simulation_options
-    ics = p21.compute_initial_conditions(inputs)
-    _, D_init, fac_za, fac_2lpt = perturb._displacement_factors(inputs, 8.0)
-    d = perturb._displacement_cells(
-        (ics.vx, ics.vy, ics.vz), (ics.vx_2LPT, ics.vy_2LPT, ics.vz_2LPT),
-        fac_za, fac_2lpt, tuple(n / L for n, L in zip(so.lowres_shape, so.box_lens)),
-    )
-    ratio = so.hires_shape[0] // so.lowres_shape[0]
-    d_init = float(np.float32(D_init))
-    hires = ics.hires_density
-    print(f"[deposit] main path z=8: displacement rms per axis "
-          f"{[round(x.std().item(), 4) for x in d]} cells, max |d| "
-          f"{max(x.abs().max().item() for x in d):.3f} cells")
-    err, worst = check_deposit(hires, d, d_init, ratio, f"main path z=8 hires {so.hires_shape}")
+    err, worst = check_deposit(hires, d, d_init, ratio, label)
 
     def kernel():
         return deposit.cic_deposit_swept(hires, *d, d_init, ratio)
@@ -305,31 +286,25 @@ def kernel_phase():
         torch.cuda.synchronize()
         return 1e3 * seconds / n
 
-    # kernel, plain, kernel again: one card, in turns.  The kernel's time is
-    # the median of single calls, each between its own pair of events, so it
-    # holds the host's time to enqueue one call; the time of a call in a run
-    # of launches stands beside it.
-    kernel_ms, batch_ms = _event_median_ms(kernel, 20), batched_ms()
-    plain_ms = _event_median_ms(lambda: deposit.cic_deposit_swept_plain(hires, *d, d_init, ratio), 10)
+    # kernel, plain, kernel again: one card, in turns
+    kernel_ms, batch_ms = _event_median_ms(kernel, reps), batched_ms()
+    plain_ms = _event_median_ms(lambda: deposit.cic_deposit_swept_plain(hires, *d, d_init, ratio),
+                                max(3, reps // 2))
     host_ms = host_call_ms()
-    print(f"[deposit] kernel again: {_event_median_ms(kernel, 20):.4f} ms (median of 20 single "
-          f"calls), {batched_ms():.4f} ms a call in a run of 50; the host spends {host_ms:.4f} ms "
-          f"on a call (200 calls, not waited for)")
-    n_lo = int(np.prod(so.lowres_shape))
+    print(f"[deposit] {label}, kernel again: {_event_median_ms(kernel, reps):.4f} ms (median of "
+          f"{reps} single calls), {batched_ms():.4f} ms a call in a run of 50; the host spends "
+          f"{host_ms:.4f} ms on a call (200 calls, not waited for)")
+    n_lo = d[0].numel()
     n_bytes = 4 * (hires.numel() + 3 * n_lo + n_lo)
     n_ops = DEPOSIT_FLOPS_PER_PARTICLE * hires.numel()
     bytes_ms, ops_ms = 1e3 * n_bytes / PEAK_BYTES_PER_S, 1e3 * n_ops / PEAK_FP32_FLOPS
-    print(f"[deposit] main-path shape: kernel {kernel_ms:.4f} ms (median of 20 single calls; "
+    print(f"[deposit] {label}: kernel {kernel_ms:.4f} ms (median of {reps} single calls; "
           f"{batch_ms:.4f} ms a call in a run of 50), plain {plain_ms:.4f} ms "
-          f"(median of 10 single calls), all by CUDA events; bound {max(bytes_ms, ops_ms):.4f} ms "
-          f"({n_bytes / 1e6:.1f} MB -> {bytes_ms:.4f} ms, {n_ops / 1e9:.2f} GFLOP -> "
-          f"{ops_ms:.4f} ms); worst per-cell error {worst:.3e} of the cell's mass")
+          f"(median of {max(3, reps // 2)} single calls), all by CUDA events; bound "
+          f"{max(bytes_ms, ops_ms):.4f} ms ({n_bytes / 1e6:.1f} MB -> {bytes_ms:.4f} ms, "
+          f"{n_ops / 1e9:.2f} GFLOP -> {ops_ms:.4f} ms); worst per-cell error {worst:.3e} of "
+          f"the cell's mass")
     return {
-        "name": "cic_deposit_swept",
-        "route": "cuda",
-        "source": "py21cmfast_torch/csrc/cic_deposit.cu",
-        "replaces": "py21cmfast_tpu/ops/pallas_deposit.py:101",
-        "launches": None,
         "max_abs_err": err,
         "ms": kernel_ms,
         "kernel_ms": kernel_ms,
@@ -338,8 +313,85 @@ def kernel_phase():
         "plain_ms": plain_ms,
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-        "library_ms": None,  # no single PyTorch call computes a CIC deposit
     }
+
+
+def _main_path_deposit_inputs(inputs, ics, z):
+    """The displacement fields (lowres cells), D_init and ratio that the
+    perturb at z hands the deposit kernel."""
+    from py21cmfast_torch.models import perturb
+
+    so = inputs.simulation_options
+    _, D_init, fac_za, fac_2lpt = perturb._displacement_factors(inputs, z)
+    d = perturb._displacement_cells(
+        (ics.vx, ics.vy, ics.vz), (ics.vx_2LPT, ics.vy_2LPT, ics.vz_2LPT),
+        fac_za, fac_2lpt, tuple(n / L for n, L in zip(so.lowres_shape, so.box_lens)),
+    )
+    print(f"[deposit] {so.hires_shape} -> {so.lowres_shape} z={z}: displacement rms per axis "
+          f"{[round(x.std().item(), 4) for x in d]} cells, max |d| "
+          f"{max(x.abs().max().item() for x in d):.3f} cells")
+    return d, float(np.float32(D_init)), so.hires_shape[0] // so.lowres_shape[0]
+
+
+def kernel_phase():
+    """The edge cases, then the perturb's own z=8 inputs at the simple
+    coeval's shape (384^3 -> 128^3) and at the headline lightcone's (768^3 ->
+    256^3), with timings of the kernel and its plain version.  Returns the
+    kernel's entry (headline-shape numbers at its top level) and the headline
+    ICs, whose first computation is timed here."""
+    import torch
+
+    import py21cmfast_torch as p21
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED)
+    for lo, ratios, mu, sigma in DEPOSIT_CASES:
+        for R in ratios:
+            hires = torch.from_numpy(
+                rng.normal(0, 0.3, tuple(R * n for n in lo)).astype(np.float32)).to(dev)
+            d = [torch.from_numpy(rng.normal(mu, sigma, lo).astype(np.float32)).to(dev)
+                 for _ in range(3)]
+            check_deposit(hires, d, 0.5, R, f"R={R} lowres {lo}, d ~ N({mu}, {sigma}) cells")
+    # masses of ~70 R^3 per channel: cells of the fixed-point tile wrap past
+    # 2^31 units (256 mean cell masses), and the heaviest channels exceed what
+    # a thread may convert and take the global path
+    for R in (1, 3):
+        lo = (20, 17, 33)
+        hires = torch.from_numpy(
+            np.abs(rng.normal(0, 180.0, tuple(R * n for n in lo))).astype(np.float32)).to(dev)
+        d = [torch.from_numpy(rng.normal(0, 0.6, lo).astype(np.float32)).to(dev) for _ in range(3)]
+        check_deposit(hires, d, 0.5, R, f"R={R} lowres {lo}, heavy masses")
+
+    by_shape = {}
+    inputs = p21.InputParameters.from_template(MAIN_TEMPLATE, random_seed=SEED)
+    ics = p21.compute_initial_conditions(inputs)
+    d, d_init, ratio = _main_path_deposit_inputs(inputs, ics, 8.0)
+    by_shape["384^3->128^3"] = _time_deposit(
+        ics.hires_density, d, d_init, ratio, f"simple coeval z=8 hires {inputs.simulation_options.hires_shape}")
+    del ics, d
+
+    inputs = _headline_inputs()
+    ics, ics_s = _sync_time(lambda: p21.compute_initial_conditions(inputs))
+    print(f"[deposit] headline ICs at {inputs.simulation_options.hires_shape} -> "
+          f"{inputs.simulation_options.lowres_shape}: {ics_s:.3f} s (first call, synchronised), "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    d, d_init, ratio = _main_path_deposit_inputs(inputs, ics, 8.0)
+    by_shape["768^3->256^3"] = _time_deposit(
+        ics.hires_density, d, d_init, ratio,
+        f"headline lightcone z=8 hires {inputs.simulation_options.hires_shape}", reps=10)
+    del d
+    torch.cuda.empty_cache()
+    entry = {
+        "name": "cic_deposit_swept",
+        "route": "cuda",
+        "source": "py21cmfast_torch/csrc/cic_deposit.cu",
+        "replaces": "py21cmfast_tpu/ops/pallas_deposit.py:101",
+        "launches": None,
+        **by_shape["768^3->256^3"],
+        "library_ms": None,  # no single PyTorch call computes a CIC deposit
+        "by_shape": by_shape,
+    }
+    return entry, (inputs, ics, ics_s)
 
 
 def _card_vs_cpu_coeval(label, nodes=False, **over):
@@ -714,12 +766,12 @@ def scroll_phase(kernels):
     return inputs, ics, [samples[i] for i in sorted(samples)]
 
 
-def scroll_stage_phase(inputs, ics, samples):
-    """Warm, synchronised per-stage times at three nodes of the scroll, each
-    stage recomputed from the state the scroll handed it, then its
-    device-busy time from a second, profiled pass.  The Ts step is taken
-    twice: building its SFRD tables itself, and with them prefetched (the
-    build is then outside the timed call)."""
+def _node_stages(inputs, ics, s, tag):
+    """Warm, synchronised per-stage times at one node of a scroll, each stage
+    recomputed from the state the scroll handed it, then its device-busy
+    time from a second, profiled pass.  The Ts step is taken twice: building
+    its SFRD tables itself, and with them prefetched (the build is then
+    outside the timed call).  Returns the stages as (name, prepare, fn)."""
     import py21cmfast_torch as p21
     from py21cmfast_torch.models import spintemp
 
@@ -728,41 +780,54 @@ def scroll_stage_phase(inputs, ics, samples):
         for fut in list(spintemp._SFRD_PREFETCH["futs"].values()):
             fut.result()
 
-    for s in samples:
-        z = s["z"]
+    z = s["z"]
 
-        def ts_step(s=s):
-            return spintemp.compute_spin_temperature(
-                s["z"], inputs, s["pf"], prev_state=s["prev_ts"], prev_redshift=s["prev_z"])
+    def ts_step():
+        return spintemp.compute_spin_temperature(
+            z, inputs, s["pf"], prev_state=s["prev_ts"], prev_redshift=s["prev_z"])
 
-        stages = [
-            ("perturb", None, lambda z=z: p21.perturb_field(z, inputs, ics)),
-            ("Ts (builds its tables)", None, ts_step),
-            ("Ts (tables prefetched)", lambda z=z: prefetch_now(z), ts_step),
-            ("ionize", None, lambda s=s: p21.compute_ionization_field(
-                s["z"], inputs, s["pf"], previous_ionized_box=s["prev_ion"], spin_temp=s["ts"],
-                prev_redshift=s["prev_z"])),
-            ("Tb", None, lambda s=s: p21.brightness_temperature(
-                inputs, s["ion"], s["pf"], spin_temp=s["ts"])),
-        ]
-        for name, prepare, fn in stages:
-            if prepare:
-                prepare()
-            _, wall = _sync_time(fn)
-            if prepare:
-                prepare()
-            busy = _device_busy_ms(fn)
-            busy_txt = (
-                "device busy not measured (the profiler saw no device activity)" if busy is None
-                else f"device busy {busy[0]:.3f} ms ({100 * busy[0] / (wall * 1e3):.1f}% of the "
-                     f"unprofiled wall), top kernels {busy[1]}"
-            )
-            print(f"[scroll-stages] z={z:.3f} {name}: {wall * 1e3:.2f} ms wall; {busy_txt}")
+    stages = [
+        ("perturb", None, lambda: p21.perturb_field(z, inputs, ics)),
+        ("Ts (builds its tables)", None, ts_step),
+        ("Ts (tables prefetched)", lambda: prefetch_now(z), ts_step),
+        ("ionize", None, lambda: p21.compute_ionization_field(
+            z, inputs, s["pf"], previous_ionized_box=s["prev_ion"], spin_temp=s["ts"],
+            prev_redshift=s["prev_z"])),
+        ("Tb", None, lambda: p21.brightness_temperature(
+            inputs, s["ion"], s["pf"], spin_temp=s["ts"])),
+    ]
+    walls, busies = [], []
+    for name, prepare, fn in stages:
+        if prepare:
+            prepare()
+        _, wall = _sync_time(fn)
+        if prepare:
+            prepare()
+        busy = _device_busy_ms(fn)
+        busy_txt = (
+            "device busy not measured (the profiler saw no device activity)" if busy is None
+            else f"device busy {busy[0]:.3f} ms ({100 * busy[0] / (wall * 1e3):.1f}% of the "
+                 f"unprofiled wall), top kernels {busy[1]}"
+        )
+        print(f"[{tag}] z={z:.3f} {name}: {wall * 1e3:.2f} ms wall; {busy_txt}")
+        if name != "Ts (builds its tables)":
+            walls.append(wall * 1e3)
+            busies.append(0.0 if busy is None else busy[0])
+    print(f"[{tag}] z={z:.3f} node of perturb, Ts (tables prefetched), ionize, Tb: "
+          f"{sum(walls):.2f} ms wall, {sum(busies):.3f} ms device busy "
+          f"({100 * sum(busies) / sum(walls):.1f}%)")
+    return stages
 
-    # where the host's time goes in the last node's Ts and ionize steps
+
+def scroll_stage_phase(inputs, ics, samples):
+    """Per-stage times at three nodes of the scroll, then where the host's
+    time goes in the last node's Ts and ionize steps (cProfile)."""
     import cProfile
     import pstats
 
+    for s in samples:
+        stages = _node_stages(inputs, ics, s, "scroll-stages")
+    z = samples[-1]["z"]
     for name, prepare, fn in stages[2:4]:
         if prepare:
             prepare()
@@ -777,6 +842,238 @@ def scroll_stage_phase(inputs, ics, samples):
               f"ms by function of the package: {ours}")
 
 
+def _tracked_lightconer(inputs):
+    """The lightconer generate_lightcone would make by default, with a mask
+    of the slices its make_lightcone_slices has returned."""
+    import py21cmfast_torch as p21
+
+    nodes = np.asarray(inputs.node_redshifts)
+    lcr = p21.RectilinearLightconer.with_equal_cdist_slices(
+        float(nodes.min()), float(nodes.max()), inputs,
+        quantities=("brightness_temp",) + (("tau_21",) if inputs.astro_options.USE_TS_FLUCT else ()),
+    )
+    written = np.zeros(lcr.n_slices, bool)
+    make = lcr.make_lightcone_slices
+
+    def tracked(*a, **kw):
+        idx, vals = make(*a, **kw)
+        if idx is not None:
+            written[idx.cpu().numpy()] = True
+        return idx, vals
+
+    lcr.make_lightcone_slices = tracked
+    return lcr, written
+
+
+def _check_written(written, lcr, inputs, label):
+    """Every slice is written but one on the top node's distance exactly (the
+    JAX package's rule selects d_low <= d < d_high)."""
+    d_top = inputs.cosmology.comoving_distance(float(np.max(inputs.node_redshifts)))
+    missing = np.where(~written)[0]
+    if not all(i == lcr.n_slices - 1 and lcr.lc_distances[i] >= d_top for i in missing):
+        raise AssertionError(f"{label}: slices {missing[:10]} of {lcr.n_slices} were never written")
+    return len(missing)
+
+
+GOLDEN_LIGHTCONES = {
+    # tests/produce_golden_data.py:43,50-53: saturated Ts, nodes z=14.6 -> 9
+    "golden lightcone": (dict(), (9.0, 14.0)),
+    # the tau_21 branch of the velocity-gradient correction, 5 nodes
+    "USE_TS_FLUCT+INHOMOGENEOUS lightcone": (
+        dict(USE_TS_FLUCT=True, RECOMB_MODEL="INHOMOGENEOUS", R_BUBBLE_MAX=20.0), (10.5, 25.0)),
+}
+
+
+def lightcone_small_phase():
+    """Golden-size lightcones (dvdr and RSDs on) on the card against the same
+    lightcones on the CPU, from one hires density.  Per cell of each cone:
+    |card - CPU| <= 1e-4 max|cone| for all but at most 1e-3 of the cells
+    (xH is thresholded, so a cell may flip on float32 rounding, and the RSD
+    scatter adds in a run-dependent order on the card); per node: the global
+    xH within 1e-3 and the mean Tb within 1e-3 max|Tb|; the same slices
+    written in both runs, all but a boundary one."""
+    import py21cmfast_torch as p21
+
+    for label, (over, (z_lo, z_hi)) in GOLDEN_LIGHTCONES.items():
+        inputs = p21.InputParameters(random_seed=SEED).evolve_input_structs(
+            **GOLDEN_SIZE, **over).with_logspaced_redshifts(z_lo, z_hi)
+        ics_cpu = p21.compute_initial_conditions(inputs, device="cpu")
+        ics_gpu = p21.compute_initial_conditions(
+            inputs, initial_density=ics_cpu.hires_density.numpy())
+        runs = {}
+        for dev, ics in (("cpu", ics_cpu), ("cuda", ics_gpu)):
+            lcr, written = _tracked_lightconer(inputs)
+            lc = p21.run_lightcone(inputs, lightconer=lcr, initial_conditions=ics, device=dev)
+            runs[dev] = (lc, written, _check_written(written, lcr, inputs, f"{label} on {dev}"))
+        (cpu, w_cpu, miss), (gpu, w_gpu, _) = runs["cpu"], runs["cuda"]
+        if not (w_cpu == w_gpu).all():
+            raise AssertionError(f"{label}: the card and the CPU wrote different slices")
+        ok = True
+        for q, c in cpu.lightcones.items():
+            g = gpu.lightcones[q].cpu().double()
+            c = c.double()
+            scale = c.abs().max().item()
+            diff = (g - c).abs()
+            share = (diff > 1e-4 * scale).double().mean().item()
+            finite = bool(gpu.lightcones[q].isfinite().all())
+            print(f"[lightcone-small] {label} {q} {tuple(c.shape)}: max |card - CPU| "
+                  f"{diff.max().item():.3e} of max {scale:.4g}, share of cells off by > 1e-4 max "
+                  f"{share:.2e} (limit 1e-3), finite {finite}")
+            ok &= share <= 1e-3 and finite
+        for q, c in cpu.global_quantities.items():
+            g = gpu.global_quantities[q]
+            lim = 1e-3 if q == "neutral_fraction" else 1e-3 * cpu.lightcones["brightness_temp"].abs().max().item()
+            err = np.abs(g - c).max()
+            print(f"[lightcone-small] {label} global {q} per node: card {np.round(g, 6).tolist()}, "
+                  f"max |card - CPU| {err:.3e} (limit {lim:.3e})")
+            ok &= err <= lim
+        print(f"[lightcone-small] {label}: {len(inputs.node_redshifts)} nodes, "
+              f"{cpu.lightconer.n_slices} slices, {miss} boundary slice(s) unwritten in both runs")
+        if not ok:
+            raise AssertionError(f"the golden-size {label} on the card disagrees with the CPU run")
+
+
+HEADLINE_SEED = 3
+HEADLINE_Z_END = 5.0
+
+
+def _headline_inputs():
+    """The repo's headline lightcone (bench.py:73-91): 256^3 at 1.5 Mpc cells
+    with a 768^3 hires grid, E-INTEGRAL sources, USE_TS_FLUCT, inhomogeneous
+    recombinations, 92 nodes from z=35.37 to z=5."""
+    import py21cmfast_torch as p21
+
+    return p21.InputParameters(random_seed=HEADLINE_SEED).evolve_input_structs(
+        HII_DIM=256, DIM=768, BOX_LEN=384.0, SOURCE_MODEL="E-INTEGRAL", USE_TS_FLUCT=True,
+        RECOMB_MODEL="inhomogeneous", R_BUBBLE_MAX=50.0, USE_EXP_FILTER=False,
+        CELL_RECOMB=False, Z_HEAT_MAX=35.0, ZPRIME_STEP_FACTOR=1.02, MINIMIZE_MEMORY=True,
+    ).with_logspaced_redshifts(HEADLINE_Z_END)
+
+
+def headline_phase(kernels, headline):
+    """The headline lightcone through generate_lightcone with dvdr and RSDs,
+    from the ICs phase 3 computed (as bench.py hands them in); launch counts
+    zeroed just before and read just after (one deposit launch per node).
+    Then the finalization's device-busy times and one node's stages at the
+    node nearest z=8."""
+    import torch
+
+    import py21cmfast_torch as p21
+    from py21cmfast_torch import rsds
+    from py21cmfast_torch.drivers.coeval import _slim_chain_ion
+    from py21cmfast_torch.ops import deposit
+
+    inputs, ics, ics_s = headline
+    so = inputs.simulation_options
+    nodes = list(inputs.node_redshifts)
+    i8 = int(np.argmin(np.abs(np.asarray(nodes) - 8.0)))
+    lcr, written = _tracked_lightconer(inputs)
+    print(f"[headline] HII_DIM={so.HII_DIM} DIM={so.DIM} BOX_LEN={so.BOX_LEN}, seed "
+          f"{inputs.random_seed}: {len(nodes)} nodes {nodes[0]:.3f} -> {nodes[-1]:.3f}, "
+          f"{lcr.n_slices} slices; ICs {ics_s:.3f} s (phase 3, first call)")
+
+    # the finalization's two steps, timed where the driver calls them; their
+    # inputs are kept for the profiled pass
+    final = {}
+
+    def timed(name, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            final[name] = (time.perf_counter() - t0, fn, a, kw)
+            return out
+        return run
+
+    steps = {"dvdr": "include_dvdr_in_tau21", "RSDs": "apply_rsds"}
+    originals = {name: getattr(rsds, attr) for name, attr in steps.items()}
+    wrappers = {"cic_deposit_swept": deposit.cic_deposit_swept}
+    torch.cuda.reset_peak_memory_stats()
+    for w in wrappers.values():
+        w.launches = 0
+    for name, attr in steps.items():
+        setattr(rsds, attr, timed(name, originals[name]))
+    seconds, xh, sample, prev, lc = [], [], None, None, None
+    try:
+        torch.cuda.synchronize()
+        t_start = t0 = time.perf_counter()
+        for i, (z, cv, lc) in enumerate(p21.generate_lightcone(
+                inputs, lightconer=lcr, initial_conditions=ics,
+                include_dvdr_in_tau21=True, apply_rsds=True)):
+            torch.cuda.synchronize()
+            if z is None:
+                t_final = time.perf_counter() - t0
+                break
+            seconds.append(time.perf_counter() - t0)
+            if z != nodes[i]:
+                raise AssertionError(f"node {i}: yielded z={z}, expected {nodes[i]}")
+            _check_fields(z, so.lowres_shape, cv.perturbed_field, cv.spin_temp,
+                          cv.ionized_box, cv.brightness_temperature)
+            xh.append(cv.neutral_fraction.double().mean().item())
+            if i == i8:
+                sample = dict(z=z, pf=cv.perturbed_field, prev_ts=prev[0], prev_ion=prev[1],
+                              prev_z=prev[2], ts=cv.spin_temp, ion=cv.ionized_box)
+            prev = (cv.spin_temp, _slim_chain_ion(cv.ionized_box), z)
+            t0 = time.perf_counter()
+        total = time.perf_counter() - t_start
+    finally:
+        for name, attr in steps.items():
+            setattr(rsds, attr, originals[name])
+    launches = {name: w.launches for name, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del prev
+
+    if len(seconds) != len(nodes):
+        raise AssertionError(f"{len(seconds)} nodes yielded of {len(nodes)}")
+    for k in kernels:
+        k["launches_by_path"]["lightcone"] = launches[k["name"]]
+        k["launches"] = sum(k["launches_by_path"].values())
+        if launches[k["name"]] < 1:
+            raise AssertionError(f"the headline lightcone never launched {k['name']}")
+    if launches["cic_deposit_swept"] != len(nodes):
+        raise AssertionError(f"expected {len(nodes)} deposit launches in the lightcone, got {launches}")
+
+    later = np.array(seconds[1:])
+    print(f"[headline] {len(nodes)} nodes in {total - t_final:.2f} s and the finalization "
+          f"{t_final:.2f} s ({total:.2f} s in all) on the card: first node {seconds[0]:.3f} s, then "
+          f"median {np.median(later):.4f} s a node (min {later.min():.4f}, max {later.max():.4f}); "
+          f"launches {launches}; peak memory {peak:.3f} GiB")
+    for name in steps:
+        wall, fn, a, kw = final[name]
+        busy = _device_busy_ms(lambda: fn(*a, **kw))
+        busy_txt = ("device busy not measured (the profiler saw no device activity)" if busy is None
+                    else f"device busy {busy[0]:.3f} ms, top kernels {busy[1]}")
+        print(f"[headline] finalization {name}: {wall:.3f} s wall; {busy_txt}")
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    wall, fn, a, kw = final["RSDs"]
+    fn(*a, **kw)
+    print(f"[headline] the RSD step's scratch above what it is handed: "
+          f"{(torch.cuda.max_memory_allocated() - base) / 2**30:.3f} GiB")
+    del final, a, kw
+
+    cone = lc.lightcones
+    shape = (so.HII_DIM, so.HII_DIM, len(lcr.lc_distances))
+    miss = _check_written(written, lcr, inputs, "headline lightcone")
+    for q, t in cone.items():
+        if tuple(t.shape) != shape or not t.is_cuda:
+            raise AssertionError(f"lightcone {q}: {tuple(t.shape)} on {t.device}, expected {shape}")
+        if not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"lightcone {q} is not finite")
+    gxh = lc.global_quantities["neutral_fraction"]
+    tb_mean = cone["brightness_temp"].double().mean().item()
+    print(f"[headline] cone {shape} of {sorted(cone)}, {miss} boundary slice(s) unwritten; <xH> "
+          f"{xh[i8]:.6f} at z={nodes[i8]:.4f} and {xh[-1]:.6f} at z={nodes[-1]}; <Tb> over the "
+          f"cone {tb_mean:.5f} mK; global xH from the cone's record: first {gxh[0]:.6f}, last "
+          f"{gxh[-1]:.6f}")
+    if not gxh[-1] < gxh[0]:
+        raise AssertionError(f"the global xH does not fall: {gxh[0]} -> {gxh[-1]}")
+    del lc, cone
+    torch.cuda.empty_cache()
+    _node_stages(inputs, ics, sample, "headline-stages")
+
+
 def main():
     import torch
 
@@ -787,13 +1084,16 @@ def main():
     t0 = time.perf_counter()
     card_info()
     build_kernels()
-    kernels = [kernel_phase()]
+    entry, headline = kernel_phase()
+    kernels = [entry]
     dens_swept = small_coeval_phase()
     perturb_paths_phase(dens_swept)
     evolving_small_phase()
+    lightcone_small_phase()
     main_path_phase(kernels)
     stage_phase()
     scroll_stage_phase(*scroll_phase(kernels))
+    headline_phase(kernels, headline)
     print(f"[total] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from ._device import resolve_device
+from .drivers.coeval import Coeval
 from .inputs import (
     AstroOptions,
     AstroParams,
@@ -32,6 +33,7 @@ __all__ = [
     "ionized_box_from_numpy",
     "brightness_temp_from_numpy",
     "ts_box_from_numpy",
+    "coeval_from_numpy",
 ]
 
 _GROUPS = {
@@ -88,3 +90,18 @@ def brightness_temp_from_numpy(arrays: dict, device="cuda") -> BrightnessTemp:
 
 def ts_box_from_numpy(arrays: dict, device="cuda") -> TsBox:
     return _struct_from_numpy(TsBox, arrays, device)
+
+
+def coeval_from_numpy(arrays: dict, device="cuda") -> Coeval:
+    """A Coeval from `{"redshift": z, "initial_conditions": {..},
+    "perturbed_field": {..}, "ionized_box": {..}, "brightness_temperature":
+    {..}, "spin_temp": {..} or None}`, each struct a dict of numpy arrays."""
+    ts = arrays.get("spin_temp")
+    return Coeval(
+        redshift=float(arrays["redshift"]),
+        initial_conditions=initial_conditions_from_numpy(arrays["initial_conditions"], device),
+        perturbed_field=perturbed_field_from_numpy(arrays["perturbed_field"], device),
+        ionized_box=ionized_box_from_numpy(arrays["ionized_box"], device),
+        brightness_temperature=brightness_temp_from_numpy(arrays["brightness_temperature"], device),
+        spin_temp=None if ts is None else ts_box_from_numpy(ts, device),
+    )

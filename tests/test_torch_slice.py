@@ -251,7 +251,7 @@ def no_cuda():
 @pytest.mark.parametrize(
     "call",
     ["compute_initial_conditions", "perturb_field", "compute_ionization_field",
-     "brightness_temperature", "run_coeval", "interop"],
+     "brightness_temperature", "run_coeval", "interop", "run_lightcone"],
 )
 def test_entry_points_default_to_cuda(no_cuda, call):
     """Called without device=, an entry point asks for the card and raises
@@ -265,6 +265,7 @@ def test_entry_points_default_to_cuda(no_cuda, call):
         "brightness_temperature": lambda: t21.brightness_temperature(inp, None, None),
         "run_coeval": lambda: t21.run_coeval(inp, 8.0),
         "interop": lambda: interop.perturbed_field_from_numpy({"density": np.zeros((2, 2, 2))}),
+        "run_lightcone": lambda: t21.run_lightcone(inp.with_logspaced_redshifts(8.0, 10.0)),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[call]()
@@ -306,3 +307,13 @@ def test_cache_and_node_scroll_raise():
         t21.run_coeval(inp.with_logspaced_redshifts(8.0, 12.0), 8.0, cache=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="XraySourceBox"):
         tspin.compute_spin_temperature(8.0, inp, None, source_box=object(), device="cpu")
+
+
+def test_lightcone_cache_raises():
+    """generate_lightcone keeps refusing the cache, naming its ROADMAP item,
+    before it computes anything."""
+    inp = t21.InputParameters(random_seed=1).evolve_input_structs(
+        HII_DIM=8, DIM=16, BOX_LEN=16.0, SOURCE_MODEL="E-INTEGRAL").with_logspaced_redshifts(8.0, 10.0)
+    gen = t21.generate_lightcone(inp, cache=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="cache.*ROADMAP Queue 1 item 16"):
+        next(gen)
