@@ -26,13 +26,19 @@ Phases, in order; any failure raises and the script exits non-zero:
      configuration, saturated Ts, z=14.6 -> 9; and USE_TS_FLUCT +
      INHOMOGENEOUS, 5 nodes) on the card against the CPU: every cone per
      cell, the global quantities per node and the slices written;
+  4e. the golden-size Munoz21 (EOS21) lightcone (minihalos, Lyman-Werner
+     feedback, v_cb FLUCTS, USE_TS_FLUCT, inhomogeneous recombinations,
+     SHARP-K, 5 nodes) on the card against the CPU from one hires density:
+     the v_cb box, then per node Ts, Tk, x_e, J_21_LW, the Nion stacks, xH
+     and Tb per cell and the turnover means, then the cones as in 4d;
   5. the first main path: run_coeval of the simple+size-medium template
      (HII_DIM=128, DIM=384, 256 Mpc) at z=10 and z=8, with every kernel's
      launch count zeroed just before and read just after;
   6. warm per-stage times of the same coeval, and each stage's device-busy
      time from a second pass under torch.profiler;
   7. the second main path: the same template with USE_TS_FLUCT and
-     inhomogeneous recombinations, evolved down its node ladder to z=8
+     inhomogeneous recombinations, evolved down its node ladder to z=8 (37
+     nodes of ZPRIME_STEP_FACTOR=1.04)
      through generate_coeval, launch counts zeroed just before and read just
      after (one deposit launch per node), with the seconds per node, the host
      time of the Ts step and what the table prefetch hid of it;
@@ -44,7 +50,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      launch counts zeroed just before and read just after (one deposit
      launch per node): seconds per node, the finalization's steps with their
      device-busy times, peak memory, a fully written finite cone, and the
-     stages of the node nearest z=8.
+     stages of the node nearest z=8;
+  10. the fourth main path: the Munoz21 (EOS21) lightcone at the headline's
+     box and ladder (256³/768³, 92 nodes to z=5, dvdr and RSDs), its ICs
+     with the v_cb box timed first; as phase 9, with ⟨J_21_LW⟩ and the
+     turnover means per node and the stages of the nodes nearest z=8 and
+     z=15.
 The line before the last is a JSON object of kernel numbers; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero and
 prints no result.
@@ -533,13 +544,14 @@ def evolving_small_phase():
 
 
 def _check_fields(z, lo, *structs):
-    """Every grid of the structs has the lowres shape, lies on the card and is finite."""
+    """Every grid of the structs has the lowres shape (the minihalo Nion
+    stacks one such grid a radius), lies on the card and is finite."""
     import torch
 
     for struct in structs:
         for name, v in vars(struct).items():
             if isinstance(v, torch.Tensor):
-                if tuple(v.shape) != lo or not v.is_cuda:
+                if tuple(v.shape[-3:]) != lo or v.ndim not in (3, 4) or not v.is_cuda:
                     raise AssertionError(f"{name} at z={z}: {tuple(v.shape)} on {v.device}")
                 if not bool(torch.isfinite(v).all()):
                     raise AssertionError(f"{name} at z={z} is not finite")
@@ -640,9 +652,11 @@ def stage_phase():
         print(f"[stages] {name}: {wall * 1e3:.2f} ms wall; {busy_txt}")
 
 
+# ZPRIME_STEP_FACTOR=1.04 (37 nodes) cuts the depth of this scroll, whose
+# width phases 9 and 10 drive at 256^3 down 92 nodes of 1.02
 SCROLL_OPTIONS = dict(
     USE_TS_FLUCT=True, RECOMB_MODEL="INHOMOGENEOUS", CELL_RECOMB=False, R_BUBBLE_MAX=50.0,
-    N_STEP_TS=40, R_MAX_TS=500.0,
+    N_STEP_TS=40, R_MAX_TS=500.0, ZPRIME_STEP_FACTOR=1.04,
 )
 SCROLL_Z_END = 8.0
 
@@ -784,7 +798,8 @@ def _node_stages(inputs, ics, s, tag):
 
     def ts_step():
         return spintemp.compute_spin_temperature(
-            z, inputs, s["pf"], prev_state=s["prev_ts"], prev_redshift=s["prev_z"])
+            z, inputs, s["pf"], prev_state=s["prev_ts"], prev_redshift=s["prev_z"],
+            initial_conditions=ics, previous_ionized_box=s["prev_ion"])
 
     stages = [
         ("perturb", None, lambda: p21.perturb_field(z, inputs, ics)),
@@ -792,7 +807,8 @@ def _node_stages(inputs, ics, s, tag):
         ("Ts (tables prefetched)", lambda: prefetch_now(z), ts_step),
         ("ionize", None, lambda: p21.compute_ionization_field(
             z, inputs, s["pf"], previous_ionized_box=s["prev_ion"], spin_temp=s["ts"],
-            prev_redshift=s["prev_z"])),
+            prev_redshift=s["prev_z"], previous_perturbed_field=s.get("prev_pf"),
+            vcb_box=ics.lowres_vcb)),
         ("Tb", None, lambda: p21.brightness_temperature(
             inputs, s["ion"], s["pf"], spin_temp=s["ts"])),
     ]
@@ -884,6 +900,38 @@ GOLDEN_LIGHTCONES = {
 }
 
 
+def _card_vs_cpu_cones(label, inputs, runs):
+    """Cones and global quantities of one lightcone on the card against the
+    CPU.  `runs` maps "cpu" and "cuda" to (LightCone, written mask,
+    unwritten boundary slices)."""
+    (cpu, w_cpu, miss), (gpu, w_gpu, _) = runs["cpu"], runs["cuda"]
+    if not (w_cpu == w_gpu).all():
+        raise AssertionError(f"{label}: the card and the CPU wrote different slices")
+    ok = True
+    for q, c in cpu.lightcones.items():
+        g = gpu.lightcones[q].cpu().double()
+        c = c.double()
+        scale = c.abs().max().item()
+        diff = (g - c).abs()
+        share = (diff > 1e-4 * scale).double().mean().item()
+        finite = bool(gpu.lightcones[q].isfinite().all())
+        print(f"[lightcone-small] {label} {q} {tuple(c.shape)}: max |card - CPU| "
+              f"{diff.max().item():.3e} of max {scale:.4g}, share of cells off by > 1e-4 max "
+              f"{share:.2e} (limit 1e-3), finite {finite}")
+        ok &= share <= 1e-3 and finite
+    for q, c in cpu.global_quantities.items():
+        g = gpu.global_quantities[q]
+        lim = 1e-3 if q == "neutral_fraction" else 1e-3 * cpu.lightcones["brightness_temp"].abs().max().item()
+        err = np.abs(g - c).max()
+        print(f"[lightcone-small] {label} global {q} per node: card {np.round(g, 6).tolist()}, "
+              f"max |card - CPU| {err:.3e} (limit {lim:.3e})")
+        ok &= err <= lim
+    print(f"[lightcone-small] {label}: {len(inputs.node_redshifts)} nodes, "
+          f"{cpu.lightconer.n_slices} slices, {miss} boundary slice(s) unwritten in both runs")
+    if not ok:
+        raise AssertionError(f"the golden-size {label} on the card disagrees with the CPU run")
+
+
 def lightcone_small_phase():
     """Golden-size lightcones (dvdr and RSDs on) on the card against the same
     lightcones on the CPU, from one hires density.  Per cell of each cone:
@@ -905,36 +953,106 @@ def lightcone_small_phase():
             lcr, written = _tracked_lightconer(inputs)
             lc = p21.run_lightcone(inputs, lightconer=lcr, initial_conditions=ics, device=dev)
             runs[dev] = (lc, written, _check_written(written, lcr, inputs, f"{label} on {dev}"))
-        (cpu, w_cpu, miss), (gpu, w_gpu, _) = runs["cpu"], runs["cuda"]
-        if not (w_cpu == w_gpu).all():
-            raise AssertionError(f"{label}: the card and the CPU wrote different slices")
-        ok = True
-        for q, c in cpu.lightcones.items():
-            g = gpu.lightcones[q].cpu().double()
-            c = c.double()
-            scale = c.abs().max().item()
-            diff = (g - c).abs()
-            share = (diff > 1e-4 * scale).double().mean().item()
-            finite = bool(gpu.lightcones[q].isfinite().all())
-            print(f"[lightcone-small] {label} {q} {tuple(c.shape)}: max |card - CPU| "
-                  f"{diff.max().item():.3e} of max {scale:.4g}, share of cells off by > 1e-4 max "
-                  f"{share:.2e} (limit 1e-3), finite {finite}")
-            ok &= share <= 1e-3 and finite
-        for q, c in cpu.global_quantities.items():
-            g = gpu.global_quantities[q]
-            lim = 1e-3 if q == "neutral_fraction" else 1e-3 * cpu.lightcones["brightness_temp"].abs().max().item()
-            err = np.abs(g - c).max()
-            print(f"[lightcone-small] {label} global {q} per node: card {np.round(g, 6).tolist()}, "
-                  f"max |card - CPU| {err:.3e} (limit {lim:.3e})")
-            ok &= err <= lim
-        print(f"[lightcone-small] {label}: {len(inputs.node_redshifts)} nodes, "
-              f"{cpu.lightconer.n_slices} slices, {miss} boundary slice(s) unwritten in both runs")
-        if not ok:
-            raise AssertionError(f"the golden-size {label} on the card disagrees with the CPU run")
+        _card_vs_cpu_cones(label, inputs, runs)
+
+
+# The Munoz et al. EOS21 parametrization, templates/Munoz21.toml.  The
+# manifest also lists "Munoz21" as an alias of "minihalos" and the lookup
+# takes that entry first, so the template is asked for by its alias "EOS21".
+MINIHALO_TEMPLATE = "EOS21"
+# per-node fields of phase 4e, by the struct that holds them
+MINIHALO_FIELDS = {
+    "spin_temp": ("spin_temperature", "kinetic_temp_neutral", "xray_ionised_fraction", "J_21_LW"),
+    "ionized_box": ("neutral_fraction", "unnormalised_nion", "unnormalised_nion_mini"),
+    "brightness_temperature": ("brightness_temp",),
+}
+
+
+def _minihalo_node(cv):
+    """A node's phase-4e fields as float64 host tensors, with its turnover means."""
+    fields = {}
+    for struct, names in MINIHALO_FIELDS.items():
+        for name in names:
+            v = getattr(getattr(cv, struct), name)
+            fields[name] = None if v is None else v.cpu().double()
+    ion = cv.ionized_box
+    return fields, float(ion.log10_Mturnover_ave), float(ion.log10_Mturnover_MINI_ave)
+
+
+def minihalo_small_phase():
+    """The golden-size Munoz21 lightcone on the card against the CPU, both from
+    one hires density.  The v_cb box: max-abs <= 1e-5 of its maximum.  Per
+    node: Ts, Tk, x_e and J_21_LW every cell within 1e-3 of its own value and
+    the mean within 1e-4 (as phase 4c); xH at most 1e-3 of the cells off by
+    1e-3; Tb and each Nion stack at most 1e-3 of the cells off by 1e-4 of the
+    maximum (a cell's first crossing sets its Gamma12, which feeds the next
+    node's turnover masses); the log10 turnover means within 1e-3.  Then the
+    cones and global quantities as in phase 4d."""
+    import py21cmfast_torch as p21
+
+    label = "Munoz21 lightcone"
+    inputs = p21.InputParameters.from_template(
+        MINIHALO_TEMPLATE, random_seed=SEED
+    ).evolve_input_structs(**GOLDEN_SIZE, R_BUBBLE_MAX=12.0).with_logspaced_redshifts(10.5, 25.0)
+    ao, mo = inputs.astro_options, inputs.matter_options
+    if not (ao.USE_MINI_HALOS and mo.V_CB_MODEL == "FLUCTS" and ao.HII_FILTER == "SHARP-K"):
+        raise AssertionError(f"{MINIHALO_TEMPLATE} is not the Munoz21 template")
+    ics_cpu = p21.compute_initial_conditions(inputs, device="cpu")
+    ics_gpu = p21.compute_initial_conditions(inputs, initial_density=ics_cpu.hires_density.numpy())
+    c, g = ics_cpu.lowres_vcb.double(), ics_gpu.lowres_vcb.cpu().double()
+    err, scale = (c - g).abs().max().item(), c.abs().max().item()
+    print(f"[minihalo-small] {label} v_cb box {tuple(c.shape)}: mean {g.mean().item():.4f} km/s card "
+          f"vs {c.mean().item():.4f} CPU, max-abs {err:.3e} of max {scale:.4g} (limit 1e-5 max)")
+    if not err <= 1e-5 * scale:
+        raise AssertionError(f"{label}: the v_cb box on the card disagrees with the CPU")
+
+    runs, nodes = {}, {}
+    for dev, ics in (("cpu", ics_cpu), ("cuda", ics_gpu)):
+        lcr, written = _tracked_lightconer(inputs)
+        nodes[dev] = []
+        for z, cv, lc in p21.generate_lightcone(
+                inputs, lightconer=lcr, initial_conditions=ics, device=dev):
+            if z is not None:
+                nodes[dev].append(_minihalo_node(cv))
+        runs[dev] = (lc, written, _check_written(written, lcr, inputs, f"{label} on {dev}"))
+
+    ok = True
+    for z, (c, mt_c, mtm_c), (g, mt_g, mtm_g) in zip(inputs.node_redshifts, nodes["cpu"], nodes["cuda"]):
+        worst = {}
+        for name in MINIHALO_FIELDS["spin_temp"]:
+            cc, gg = c[name], g[name]
+            rel = ((gg - cc).abs() / cc.abs().clamp_min(1e-30)).max().item()
+            mean_rel = abs(gg.mean().item() - cc.mean().item()) / max(abs(cc.mean().item()), 1e-30)
+            worst[name] = rel
+            ok &= rel <= 1e-3 and mean_rel <= 1e-4
+        flipped = ((g["neutral_fraction"] - c["neutral_fraction"]).abs() > 1e-3).double().mean().item()
+        ok &= flipped <= 1e-3
+        shares = {}
+        for name in ("brightness_temp", "unnormalised_nion", "unnormalised_nion_mini"):
+            if (c[name] is None) != (g[name] is None):
+                raise AssertionError(f"{label} z={z:.3f}: {name} on one device only")
+            if c[name] is None:
+                continue
+            diff, scale = (g[name] - c[name]).abs(), c[name].abs().max().item()
+            shares[name] = ((diff > 1e-4 * scale).double().mean().item(), diff.max().item() / scale)
+            ok &= shares[name][0] <= 1e-3
+        ok &= abs(mt_g - mt_c) <= 1e-3 and abs(mtm_g - mtm_c) <= 1e-3
+        print(f"[minihalo-small] {label} z={z:.3f}: <J_21_LW> {g['J_21_LW'].mean().item():.5g} card vs "
+              f"{c['J_21_LW'].mean().item():.5g} CPU, log10 Mturn ACG {mt_g:.6f} vs {mt_c:.6f}, MCG "
+              f"{mtm_g:.6f} vs {mtm_c:.6f}; worst cell rel {{{', '.join(f'{k}: {v:.2e}' for k, v in worst.items())}}} "
+              f"(limit 1e-3); xH flipped share {flipped:.2e}; (share off by > 1e-4 max, max err / max) "
+              f"{{{', '.join(f'{k}: ({v[0]:.2e}, {v[1]:.2e})' for k, v in shares.items())}}}")
+    if not ok:
+        raise AssertionError(f"the golden-size {label}'s nodes on the card disagree with the CPU run")
+    if nodes["cuda"][-1][0]["unnormalised_nion"] is None:
+        raise AssertionError(f"{label}: the last node carries no Nion stacks")
+    _card_vs_cpu_cones(label, inputs, runs)
 
 
 HEADLINE_SEED = 3
 HEADLINE_Z_END = 5.0
+HEADLINE_BOX = dict(HII_DIM=256, DIM=768, BOX_LEN=384.0, Z_HEAT_MAX=35.0, ZPRIME_STEP_FACTOR=1.02,
+                    MINIMIZE_MEMORY=True)
 
 
 def _headline_inputs():
@@ -944,33 +1062,64 @@ def _headline_inputs():
     import py21cmfast_torch as p21
 
     return p21.InputParameters(random_seed=HEADLINE_SEED).evolve_input_structs(
-        HII_DIM=256, DIM=768, BOX_LEN=384.0, SOURCE_MODEL="E-INTEGRAL", USE_TS_FLUCT=True,
-        RECOMB_MODEL="inhomogeneous", R_BUBBLE_MAX=50.0, USE_EXP_FILTER=False,
-        CELL_RECOMB=False, Z_HEAT_MAX=35.0, ZPRIME_STEP_FACTOR=1.02, MINIMIZE_MEMORY=True,
+        SOURCE_MODEL="E-INTEGRAL", USE_TS_FLUCT=True, RECOMB_MODEL="inhomogeneous",
+        R_BUBBLE_MAX=50.0, USE_EXP_FILTER=False, CELL_RECOMB=False, **HEADLINE_BOX,
     ).with_logspaced_redshifts(HEADLINE_Z_END)
 
 
-def headline_phase(kernels, headline):
-    """The headline lightcone through generate_lightcone with dvdr and RSDs,
-    from the ICs phase 3 computed (as bench.py hands them in); launch counts
-    zeroed just before and read just after (one deposit launch per node).
-    Then the finalization's device-busy times and one node's stages at the
-    node nearest z=8."""
+def _minihalo_headline_inputs():
+    """The Munoz21 template (minihalos, LW feedback, v_cb FLUCTS, USE_TS_FLUCT,
+    inhomogeneous recombinations, SHARP-K, R_BUBBLE_MAX=50) at the headline's
+    box and node ladder."""
+    import py21cmfast_torch as p21
+
+    return p21.InputParameters.from_template(
+        MINIHALO_TEMPLATE, random_seed=HEADLINE_SEED
+    ).evolve_input_structs(**HEADLINE_BOX).with_logspaced_redshifts(HEADLINE_Z_END)
+
+
+def _moved(struct, device):
+    """A copy of an output struct with its tensors on `device`."""
+    import dataclasses
+
+    import torch
+
+    if struct is None:
+        return None
+    return dataclasses.replace(struct, **{
+        k: v.to(device) for k, v in vars(struct).items() if isinstance(v, torch.Tensor)})
+
+
+def _without_stacks(ion):
+    """The IonizedBox without its minihalo Nion stacks."""
+    import dataclasses
+
+    return dataclasses.replace(ion, unnormalised_nion=None, unnormalised_nion_mini=None)
+
+
+def lightcone_phase(kernels, inputs, ics, ics_s, tag, path, sample_z):
+    """A full-size lightcone through generate_lightcone with dvdr and RSDs,
+    from ICs computed before (as bench.py hands them in); launch counts zeroed
+    just before and read just after (one deposit launch per node).  Then the
+    finalization's device-busy times and the stages of the nodes nearest each
+    of `sample_z`, recomputed from the state the scroll handed them; that
+    state is kept on the host meanwhile, so that it adds nothing to the run's
+    peak memory."""
     import torch
 
     import py21cmfast_torch as p21
     from py21cmfast_torch import rsds
-    from py21cmfast_torch.drivers.coeval import _slim_chain_ion
+    from py21cmfast_torch.drivers.coeval import _slim_chain_ion, _slim_chain_pf
     from py21cmfast_torch.ops import deposit
 
-    inputs, ics, ics_s = headline
     so = inputs.simulation_options
+    mini = inputs.astro_options.USE_MINI_HALOS
     nodes = list(inputs.node_redshifts)
-    i8 = int(np.argmin(np.abs(np.asarray(nodes) - 8.0)))
+    sample_at = sorted({int(np.argmin(np.abs(np.asarray(nodes) - z))) for z in sample_z})
     lcr, written = _tracked_lightconer(inputs)
-    print(f"[headline] HII_DIM={so.HII_DIM} DIM={so.DIM} BOX_LEN={so.BOX_LEN}, seed "
+    print(f"[{tag}] HII_DIM={so.HII_DIM} DIM={so.DIM} BOX_LEN={so.BOX_LEN}, seed "
           f"{inputs.random_seed}: {len(nodes)} nodes {nodes[0]:.3f} -> {nodes[-1]:.3f}, "
-          f"{lcr.n_slices} slices; ICs {ics_s:.3f} s (phase 3, first call)")
+          f"{lcr.n_slices} slices; ICs {ics_s:.3f} s (first call)")
 
     # the finalization's two steps, timed where the driver calls them; their
     # inputs are kept for the profiled pass
@@ -994,7 +1143,7 @@ def headline_phase(kernels, headline):
         w.launches = 0
     for name, attr in steps.items():
         setattr(rsds, attr, timed(name, originals[name]))
-    seconds, xh, sample, prev, lc = [], [], None, None, None
+    seconds, xh, mini_means, samples, prev, lc = [], [], [], {}, None, None
     try:
         torch.cuda.synchronize()
         t_start = t0 = time.perf_counter()
@@ -1011,10 +1160,21 @@ def headline_phase(kernels, headline):
             _check_fields(z, so.lowres_shape, cv.perturbed_field, cv.spin_temp,
                           cv.ionized_box, cv.brightness_temperature)
             xh.append(cv.neutral_fraction.double().mean().item())
-            if i == i8:
-                sample = dict(z=z, pf=cv.perturbed_field, prev_ts=prev[0], prev_ion=prev[1],
-                              prev_z=prev[2], ts=cv.spin_temp, ion=cv.ionized_box)
-            prev = (cv.spin_temp, _slim_chain_ion(cv.ionized_box), z)
+            ion = cv.ionized_box
+            if mini:
+                mini_means.append((cv.spin_temp.J_21_LW.double().mean().item(),
+                                   float(ion.log10_Mturnover_ave), float(ion.log10_Mturnover_MINI_ave)))
+            if i in sample_at:
+                samples[i] = dict(
+                    z=z, pf=_moved(cv.perturbed_field, "cpu"), ts=_moved(cv.spin_temp, "cpu"),
+                    ion=_moved(_without_stacks(ion), "cpu"), prev_ts=_moved(prev[0], "cpu"),
+                    prev_ion=_moved(prev[1], "cpu"), prev_pf=_moved(prev[2], "cpu"), prev_z=prev[3])
+            # what the next node's stages read, its Nion stacks only if it is sampled
+            prev_ion = _slim_chain_ion(ion)
+            prev = (cv.spin_temp,
+                    prev_ion if i + 1 in sample_at else _without_stacks(prev_ion),
+                    _slim_chain_pf(cv.perturbed_field, needed=mini), z)
+            del ion, prev_ion
             t0 = time.perf_counter()
         total = time.perf_counter() - t_start
     finally:
@@ -1022,20 +1182,20 @@ def headline_phase(kernels, headline):
             setattr(rsds, attr, originals[name])
     launches = {name: w.launches for name, w in wrappers.items()}
     peak = torch.cuda.max_memory_allocated() / 2**30
-    del prev
+    del prev, cv
 
     if len(seconds) != len(nodes):
         raise AssertionError(f"{len(seconds)} nodes yielded of {len(nodes)}")
     for k in kernels:
-        k["launches_by_path"]["lightcone"] = launches[k["name"]]
+        k["launches_by_path"][path] = launches[k["name"]]
         k["launches"] = sum(k["launches_by_path"].values())
         if launches[k["name"]] < 1:
-            raise AssertionError(f"the headline lightcone never launched {k['name']}")
+            raise AssertionError(f"the {tag} lightcone never launched {k['name']}")
     if launches["cic_deposit_swept"] != len(nodes):
-        raise AssertionError(f"expected {len(nodes)} deposit launches in the lightcone, got {launches}")
+        raise AssertionError(f"expected {len(nodes)} deposit launches in the {tag} lightcone, got {launches}")
 
     later = np.array(seconds[1:])
-    print(f"[headline] {len(nodes)} nodes in {total - t_final:.2f} s and the finalization "
+    print(f"[{tag}] {len(nodes)} nodes in {total - t_final:.2f} s and the finalization "
           f"{t_final:.2f} s ({total:.2f} s in all) on the card: first node {seconds[0]:.3f} s, then "
           f"median {np.median(later):.4f} s a node (min {later.min():.4f}, max {later.max():.4f}); "
           f"launches {launches}; peak memory {peak:.3f} GiB")
@@ -1044,18 +1204,18 @@ def headline_phase(kernels, headline):
         busy = _device_busy_ms(lambda: fn(*a, **kw))
         busy_txt = ("device busy not measured (the profiler saw no device activity)" if busy is None
                     else f"device busy {busy[0]:.3f} ms, top kernels {busy[1]}")
-        print(f"[headline] finalization {name}: {wall:.3f} s wall; {busy_txt}")
+        print(f"[{tag}] finalization {name}: {wall:.3f} s wall; {busy_txt}")
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     wall, fn, a, kw = final["RSDs"]
     fn(*a, **kw)
-    print(f"[headline] the RSD step's scratch above what it is handed: "
+    print(f"[{tag}] the RSD step's scratch above what it is handed: "
           f"{(torch.cuda.max_memory_allocated() - base) / 2**30:.3f} GiB")
     del final, a, kw
 
     cone = lc.lightcones
     shape = (so.HII_DIM, so.HII_DIM, len(lcr.lc_distances))
-    miss = _check_written(written, lcr, inputs, "headline lightcone")
+    miss = _check_written(written, lcr, inputs, f"{tag} lightcone")
     for q, t in cone.items():
         if tuple(t.shape) != shape or not t.is_cuda:
             raise AssertionError(f"lightcone {q}: {tuple(t.shape)} on {t.device}, expected {shape}")
@@ -1063,15 +1223,68 @@ def headline_phase(kernels, headline):
             raise AssertionError(f"lightcone {q} is not finite")
     gxh = lc.global_quantities["neutral_fraction"]
     tb_mean = cone["brightness_temp"].double().mean().item()
-    print(f"[headline] cone {shape} of {sorted(cone)}, {miss} boundary slice(s) unwritten; <xH> "
+    i8 = int(np.argmin(np.abs(np.asarray(nodes) - 8.0)))
+    print(f"[{tag}] cone {shape} of {sorted(cone)}, {miss} boundary slice(s) unwritten; <xH> "
           f"{xh[i8]:.6f} at z={nodes[i8]:.4f} and {xh[-1]:.6f} at z={nodes[-1]}; <Tb> over the "
           f"cone {tb_mean:.5f} mK; global xH from the cone's record: first {gxh[0]:.6f}, last "
           f"{gxh[-1]:.6f}")
     if not gxh[-1] < gxh[0]:
         raise AssertionError(f"the global xH does not fall: {gxh[0]} -> {gxh[-1]}")
+    if mini:
+        lw, mt, mtm = (np.array(v) for v in zip(*mini_means))
+        print(f"[{tag}] <J_21_LW> per node: {np.round(lw, 5).tolist()}")
+        print(f"[{tag}] log10_Mturnover_MINI_ave per node: {np.round(mtm, 4).tolist()}")
+        print(f"[{tag}] log10_Mturnover_ave per node: {np.round(mt, 4).tolist()}")
+        # nodes where nothing ionizes yet (ionization's early exit) report 0
+        if not (np.isfinite(lw).all() and lw[-1] > 0 and mtm[-1] > 5.0 and (mtm[mtm != 0] > 5.0).all()):
+            raise AssertionError(f"{tag}: no Lyman-Werner background or a turnover mass out of range")
     del lc, cone
     torch.cuda.empty_cache()
-    _node_stages(inputs, ics, sample, "headline-stages")
+    for i in sample_at:
+        s = {k: _moved(v, "cuda") if k not in ("z", "prev_z") else v for k, v in samples.pop(i).items()}
+        _node_stages(inputs, ics, s, f"{tag}-stages")
+        del s
+        torch.cuda.empty_cache()
+
+
+def headline_phase(kernels, headline):
+    """Phase 9: the headline lightcone from the ICs phase 3 computed; the
+    stages of the node nearest z=8."""
+    inputs, ics, ics_s = headline
+    lightcone_phase(kernels, inputs, ics, ics_s, "headline", "lightcone", (8.0,))
+
+
+def minihalo_headline_phase(kernels):
+    """Phase 10: the Munoz21 lightcone at the headline's box and ladder.  Its
+    ICs (with the v_cb box) are computed and timed first, then the v_cb box
+    alone, warm; the stages of the nodes nearest z=8 and z=15."""
+    import torch
+
+    import py21cmfast_torch as p21
+    from py21cmfast_torch.models import ics as ics_module
+    from py21cmfast_torch.ops import fft
+
+    inputs = _minihalo_headline_inputs()
+    so = inputs.simulation_options
+    torch.cuda.reset_peak_memory_stats()
+    ics, ics_s = _sync_time(lambda: p21.compute_initial_conditions(inputs))
+    ics_peak = torch.cuda.max_memory_allocated() / 2**30
+    d_k = fft.rfft3(ics.hires_density)
+    ics_module.compute_vcb_box(inputs, d_k)
+    vcb, vcb_s = _sync_time(lambda: ics_module.compute_vcb_box(inputs, d_k))
+    err = (vcb - ics.lowres_vcb).abs().max().item()
+    del d_k, vcb
+    torch.cuda.empty_cache()
+    v = ics.lowres_vcb
+    print(f"[munoz21] ICs at {so.hires_shape} -> {so.lowres_shape} with the v_cb box: {ics_s:.3f} s "
+          f"(first call, synchronised), peak memory {ics_peak:.3f} GiB; the v_cb box alone "
+          f"{vcb_s * 1e3:.2f} ms (warm, from the hires density's transform; max-abs {err:.3e} from "
+          f"the ICs' own); |v_cb| mean {v.double().mean().item():.4f} km/s, rms "
+          f"{v.double().square().mean().sqrt().item():.4f}, min {v.min().item():.4f}, max "
+          f"{v.max().item():.4f}")
+    if tuple(v.shape) != so.lowres_shape or not bool(torch.isfinite(v).all()) or not v.min().item() >= 0:
+        raise AssertionError("the Munoz21 v_cb box is malformed")
+    lightcone_phase(kernels, inputs, ics, ics_s, "munoz21", "minihalo_lightcone", (8.0, 15.0))
 
 
 def main():
@@ -1090,10 +1303,14 @@ def main():
     perturb_paths_phase(dens_swept)
     evolving_small_phase()
     lightcone_small_phase()
+    minihalo_small_phase()
     main_path_phase(kernels)
     stage_phase()
     scroll_stage_phase(*scroll_phase(kernels))
     headline_phase(kernels, headline)
+    del headline
+    torch.cuda.empty_cache()
+    minihalo_headline_phase(kernels)
     print(f"[total] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -53,12 +53,20 @@ class Coeval:
 def _slim_chain_ion(ion: IonizedBox | None):
     """Drop the IonizedBox fields nothing downstream in the scroll reads: the
     next snapshot only needs z_reion, ionisation_rate_G12, the mean f_coll
-    scalars and cumulative_recombinations."""
+    scalars, cumulative_recombinations and the unnormalised_nion stacks."""
     if ion is None:
         return ion
     return dataclasses.replace(
         ion, neutral_fraction=None, mean_free_path=None, kinetic_temperature=None
     )
+
+
+def _slim_chain_pf(pf: PerturbedField | None, needed: bool):
+    """The previous PerturbedField is read only by the minihalo Nion
+    trapezoid (ionization's tracked Nion history), and then only its density."""
+    if pf is None or not needed:
+        return None
+    return dataclasses.replace(pf, velocity_z=None, velocity_x=None, velocity_y=None)
 
 
 def _required_redshifts(inputs: InputParameters, out_redshifts):
@@ -84,7 +92,6 @@ def generate_coeval(
     if cache is not None:
         not_in_slice("the output cache", 16)
     ao = inputs.astro_options
-    ics_module.check_inputs(inputs)
     perturb.check_inputs(inputs)
     ionization.check_inputs(inputs)
     if ao.USE_TS_FLUCT:
@@ -100,6 +107,7 @@ def generate_coeval(
         initial_conditions = ics_module.compute_initial_conditions(inputs, device=dev)
 
     prev_ion: IonizedBox | None = None
+    prev_pf: PerturbedField | None = None
     prev_z = None
     ts_state = None
     for i, z in enumerate(all_z):
@@ -108,7 +116,9 @@ def generate_coeval(
         ts = None
         if ao.USE_TS_FLUCT:
             ts, ts_state = spintemp.compute_spin_temperature(
-                z, inputs, pf, prev_state=ts_state, prev_redshift=prev_z, device=dev
+                z, inputs, pf, prev_state=ts_state, prev_redshift=prev_z,
+                initial_conditions=initial_conditions, previous_ionized_box=prev_ion,
+                device=dev,
             )
             # overlap the next node's host-side SFRD tables with this node's
             # device work (worker thread; see spintemp.prefetch_sfrd_tables)
@@ -117,8 +127,12 @@ def generate_coeval(
 
         ion = ionization.compute_ionization_field(
             z, inputs, pf, previous_ionized_box=prev_ion, spin_temp=ts,
-            prev_redshift=prev_z, device=dev,
+            prev_redshift=prev_z, previous_perturbed_field=prev_pf,
+            vcb_box=initial_conditions.lowres_vcb, device=dev,
         )
+        # the previous node's Nion stacks (2 x n_R grids with minihalos) are
+        # read: release the scroll's hold on them now
+        prev_ion = prev_pf = None
         tb = brightness_temperature(inputs, ion, pf, spin_temp=ts, device=dev)
         check_nonfinite(z, pf, ts, ion, tb)
 
@@ -135,7 +149,9 @@ def generate_coeval(
         # keep only what the next snapshot reads; without evolution there is
         # no coupling between snapshots
         prev_ion = _slim_chain_ion(ion) if needs_evolution else None
+        prev_pf = _slim_chain_pf(pf, needed=ao.USE_MINI_HALOS)
         prev_z = z
+        del ion, pf, ts, tb
 
 
 def run_coeval(

@@ -199,8 +199,12 @@ def generate_lightcone(
             if checkpoint_path is not None:
                 _checkpoint_save(checkpoint_path, inputs, lightcones,
                                  _global_quantities(gq_host, means, global_quantities), i_node)
-        prev_coeval = coeval
+        # the lightconer reads no Nion stacks: keep the previous node without
+        # them, so that the next node's scan frees them once it has read them
+        prev_coeval = dataclasses.replace(coeval, ionized_box=dataclasses.replace(
+            coeval.ionized_box, unnormalised_nion=None, unnormalised_nion_mini=None))
         yield coeval.redshift, coeval, lc
+        del coeval
 
     lc.global_quantities = _global_quantities(gq_host, means, global_quantities)
 
@@ -229,6 +233,7 @@ def generate_lightcone(
 def run_lightcone(inputs: InputParameters, **kwargs) -> LightCone:
     """Run the full lightcone pipeline (reference run_lightcone:727-734)."""
     lc = None
-    for _z, _coeval, lc in generate_lightcone(inputs, **kwargs):
-        pass
+    for step in generate_lightcone(inputs, **kwargs):
+        lc = step[2]
+        del step  # holds the node's coeval while the next one is computed
     return lc

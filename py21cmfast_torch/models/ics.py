@@ -22,13 +22,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .._device import not_in_slice, resolve_device
+from .._device import resolve_device
 from ..cosmology.constants import physconst
 from ..inputs import InputParameters
 from ..ops import fft, filters, grids
 from ..outputs import InitialConditions
 
-__all__ = ["compute_initial_conditions", "power_amplitude_table"]
+__all__ = ["compute_initial_conditions", "compute_vcb_box", "power_amplitude_table"]
 
 
 def power_amplitude_table(inputs: InputParameters, device, n: int = 2048):
@@ -153,11 +153,50 @@ def _compute_2lpt(d_k, hi_shape, box_lens, pt_shape, do_filter_vel):
     ]
 
 
-def check_inputs(inputs: InputParameters) -> None:
-    """Raise NotImplementedError for IC options outside the port."""
-    mo = inputs.matter_options
-    if mo.V_CB_MODEL == "FLUCTS":
-        not_in_slice("V_CB_MODEL='FLUCTS'", 11)
+def vcb_ratio_table(inputs: InputParameters, device, n: int = 2048):
+    """ln(k) -> sqrt(P_vcb(k)/P_m(k)) [km/s] for the relative-velocity
+    realization (reference compute_relative_velocities, InitialConditions.c:141),
+    built in float64 on the host and returned as float32 tensors on `device`."""
+    so = inputs.simulation_options
+    cosmo = inputs.cosmology
+    k_min = 2 * np.pi / (so.box_len * max(so.NON_CUBIC_FACTOR, 1.0)) / 2
+    k_max = 2 * np.pi / so.box_len * so.dim * np.sqrt(3.0)
+    ln_k = np.linspace(np.log(k_min), np.log(k_max), n)
+    k = np.exp(ln_k)
+    ratio = np.sqrt(cosmo.power_vcb(k) / cosmo.power_in_k(k))
+    return (
+        torch.as_tensor(ln_k, dtype=torch.float32, device=device),
+        torch.as_tensor(ratio, dtype=torch.float32, device=device),
+    )
+
+
+def compute_vcb_box(inputs: InputParameters, d_k) -> torch.Tensor:
+    """Lowres |v_cb| box in km/s at kinematic decoupling, correlated with the
+    density realization as the reference does: each component is
+    irfftn(d_k i k_i/k sqrt(P_vcb/P)), filtered to the lowres cell and
+    subsampled (InitialConditions.c:177-233), then the speed of each cell."""
+    so = inputs.simulation_options
+    hi_shape, lo_shape, box_lens = so.hires_shape, so.lowres_shape, so.box_lens
+    ln_k, ratio = vcb_ratio_table(inputs, d_k.device)
+    kmag = grids.kmag_grid(hi_shape, box_lens, d_k.device)
+    lnk = torch.log(torch.where(kmag > 0, kmag, 1.0))
+    inv_dx = (ln_k.shape[0] - 1) / (ln_k[-1] - ln_k[0])
+    amp = torch.where(kmag > 0, grids.uniform_lerp(lnk, ln_k[0], inv_dx, ratio), 0.0)
+    kmag_safe = torch.where(kmag > 0, kmag, 1.0)
+    del lnk
+    speed_sq = None
+    for axis in range(3):
+        kvec = _kvec(axis, hi_shape, box_lens, d_k.device)
+        g_k = d_k * (1j * kvec / kmag_safe) * amp
+        if so.dim != so.HII_DIM:
+            smooth_R = physconst.l_factor * box_lens[0] / lo_shape[0]
+            g_k = filters.filter_kbox(g_k, kmag, filters.TOPHAT, smooth_R)
+        v = fft.irfft3(g_k, hi_shape)
+        del g_k
+        if lo_shape != hi_shape:
+            v = grids.subsample(v, lo_shape)
+        speed_sq = v * v if speed_sq is None else speed_sq + v * v
+    return torch.sqrt(speed_sq)
 
 
 def compute_initial_conditions(
@@ -170,7 +209,6 @@ def compute_initial_conditions(
     in place of GRF sampling (reference single_field.py:94-113); otherwise the
     white noise comes from a `torch.Generator` seeded with `random_seed`."""
     dev = resolve_device(device)
-    check_inputs(inputs)
     so = inputs.simulation_options
     mo = inputs.matter_options
     hi_shape = so.hires_shape
@@ -224,6 +262,8 @@ def compute_initial_conditions(
         else:
             vel_2lpt = _compute_2lpt(d_k, hi_shape, box_lens, pt_shape, do_filter_vel)
 
+    lowres_vcb = compute_vcb_box(inputs, d_k) if mo.V_CB_MODEL == "FLUCTS" else None
+
     return InitialConditions(
         hires_density=hires_density,
         lowres_density=lowres_density,
@@ -233,4 +273,5 @@ def compute_initial_conditions(
         vx_2LPT=vel_2lpt[0],
         vy_2LPT=vel_2lpt[1],
         vz_2LPT=vel_2lpt[2],
+        lowres_vcb=lowres_vcb,
     )

@@ -10,6 +10,14 @@ for CONST-ION-EFF; per-R Chebyshev fit or density-table gather for E-INTEGRAL),
 mean-fixes it to the global value and applies the ionization criterion with
 first-crossing bookkeeping (IonisationBox.c:1008-1201).
 
+With USE_MINI_HALOS the sources split into atomic-cooling (ACG) and
+molecular-cooling (MCG) halos whose turnover masses vary per cell
+(`_mcrit_kernel`: reionization, Lyman-Werner and streaming-velocity feedback);
+the collapsed fractions are then bilinear gathers from per-R (log10 Mturn,
+delta) tables, and the pre-mean-fix grids of each radius are kept as the
+`unnormalised_nion(_mini)` stacks for the next snapshot's trapezoidal Nion
+update (IonisationBox.c:834-880).
+
 The host precomputes (per snapshot, float64): the radius ladder, sigma(M(R)),
 the global Nion/Fcoll normalizations and the per-R conditional-Nion tables
 (reference setup_integration_tables:702-768, interp_tables.c:291-579).
@@ -37,6 +45,8 @@ __all__ = ["compute_ionization_field", "setup_radii"]
 
 HII_ROUND_ERR = 1e-5
 N_DELTA_TABLE = 400
+N_MTURN_TABLE = 24
+MTURN_BOUNDS = (5.0, 10.0)  # log10 Mturn axis of the minihalo tables (IonisationBox.c:34)
 CHEBY_DEG = 16          # degree of the log-Nion Chebyshev fits
 CHEBY_X_SAFE = 0.98     # blend to the table edge above this (barrier sliver)
 
@@ -164,6 +174,148 @@ def _build_nion_tables(inputs, ladder, sigma_table, growth, m_min, sc):
     return d_lo, d_hi, tables, caps
 
 
+def _build_nion_tables_mini(inputs, ladder, sigma_table, growth, m_min, sc, l10_mturns):
+    """Per-R (log10 Mturn, delta) conditional-Nion tables for ACG and MCG.
+
+    Returns (delta_lo[n_R], delta_hi[n_R], tables[n_R, n_Mturn, N_DELTA],
+    caps[n_R], tables_mini[n_R, n_Mturn, N_DELTA], caps_mini[n_R])."""
+    hmf_int = hmf.HMF_NAMES[inputs.matter_options.HMF]
+    ln_m_min = np.log(m_min)
+    n_r = ladder.n
+    n_mt = len(l10_mturns)
+    d_lo = np.full(n_r, -1.0 + 1e-6)
+    d_hi = np.empty(n_r)
+    tables = np.empty((n_r, n_mt, N_DELTA_TABLE))
+    tables_mini = np.empty((n_r, n_mt, N_DELTA_TABLE))
+    eff_hmf = hmf_int if hmf_int in (hmf.HMF_PS, hmf.HMF_ST, hmf.HMF_DELOS) else hmf.HMF_PS
+    for i in range(n_r):
+        sig = ladder.sigma_max[i]
+        dcrit = float(hmf.get_delta_crit(eff_hmf, sig, growth))
+        d_hi[i] = dcrit * hmf.MAX_DELTAC_FRAC
+        deltas = np.linspace(d_lo[i], d_hi[i], N_DELTA_TABLE)
+        ln_mc = float(np.log(ladder.M_max[i]))
+        tables[i] = hmf.build_nion_mturn_tables(
+            sigma_table, hmf_int, growth, ln_m_min, ln_mc, sig, deltas, l10_mturns, sc,
+            method=inputs.astro_options.INTEGRATION_METHOD_ATOMIC,
+        )
+        tables_mini[i] = hmf.build_nion_mturn_tables(
+            sigma_table, hmf_int, growth, ln_m_min, ln_mc, sig, deltas, l10_mturns,
+            sc, mini=True, method=inputs.astro_options.INTEGRATION_METHOD_MINI,
+        )
+    caps = np.array(
+        [hmf.nion_weight(np.array([np.log(m)]), sc, sc.mturn_a_nofb)[0] / m
+         for m in ladder.M_max]
+    )
+    caps_mini = np.array(
+        [hmf.nion_weight_mini(np.array([np.log(m)]), sc, sc.mturn_m_nofb)[0] / m
+         for m in ladder.M_max]
+    )
+    return d_lo, d_hi, tables, caps, tables_mini, caps_mini
+
+
+def _mcrit_kernel(prev_g12, prev_zre, j21, redshift, mturn_a_nofb, mturn_m_nofb, vcb,
+                  a_lw, beta_lw, a_vcb, beta_vcb, sigmavcb):
+    """Per-cell log10 turnover masses of ACG and MCG halos
+    (calculate_mcrit_boxes:403-460 with thermochem.c reionization_feedback and
+    lyman_werner_threshold): Sobacchi-Mesinger feedback from the previous
+    Gamma12 and z_reion, Lyman-Werner feedback from J_21_LW and the
+    streaming-velocity factor.  The scalars are float32 0-d tensors on the
+    grids' device; `vcb` is one of them or the lowres |v_cb| box."""
+    zfrac = torch.clamp_min(1.0 - ((1.0 + redshift) / (1.0 + prev_zre)) ** 2.0, 0.0)
+    mcrit_re = 3e9 * (2.0 * torch.clamp_min(prev_g12, 1e-20)) ** 0.17 * (
+        (1.0 + redshift) / 10.0
+    ) ** -2.1 * zfrac ** 2.5
+    # never-ionized cells carry no reionization feedback; the JAX package
+    # writes 1e-40 there (a float32 denormal), 0 takes the same maximum below
+    mcrit_re = torch.where(prev_zre <= 1e-19, 0.0, mcrit_re)
+
+    mcrit_nolw = 3.314e7 * (1.0 + redshift) ** -1.5
+    f_lw = 1.0 + a_lw * torch.clamp_min(j21, 0.0) ** beta_lw
+    f_vcb = (1.0 + a_vcb * vcb / sigmavcb) ** beta_vcb
+    mcrit_lw = mcrit_nolw * f_lw * f_vcb
+
+    mt_a = torch.log10(torch.maximum(mcrit_re, mturn_a_nofb))
+    mt_m = torch.log10(torch.maximum(mcrit_re, torch.maximum(mcrit_lw, mturn_m_nofb)))
+    return mt_a, mt_m
+
+
+def mcrit_boxes(redshift, inputs, sc, previous_ionized_box, lw_box, vcb_box, device):
+    """`_mcrit_kernel` for one snapshot, its scalars rounded to float32 on
+    `device` as the JAX package hands them over.  `previous_ionized_box`
+    gives Gamma12 and z_reion (no reionization feedback without one),
+    `lw_box` is the TsBox whose J_21_LW sets the LW feedback (none without
+    one), `vcb_box` the ICs' lowres |v_cb| (the scaling constants' mean speed
+    without one)."""
+    ap = inputs.astro_params
+    shape = inputs.simulation_options.lowres_shape
+
+    def grid(box, name, fill):
+        v = getattr(box, name, None) if box is not None else None
+        if v is not None:
+            return v.to(device)
+        return torch.full(shape, fill, dtype=torch.float32, device=device)
+
+    def f32(v):
+        return torch.tensor(float(_f32(v)), dtype=torch.float32, device=device)
+
+    return _mcrit_kernel(
+        grid(previous_ionized_box, "ionisation_rate_G12", 0.0),
+        grid(previous_ionized_box, "z_reion", -1.0),
+        grid(lw_box, "J_21_LW", 0.0),
+        f32(redshift), f32(sc.mturn_a_nofb), f32(sc.mturn_m_nofb),
+        vcb_box.to(device) if vcb_box is not None else f32(sc.vcb_const),
+        f32(ap.A_LW), f32(ap.BETA_LW), f32(ap.A_VCB), f32(ap.BETA_VCB),
+        f32(sc.v_cb_avg * np.sqrt(3.0 * np.pi / 8.0)),
+    )
+
+
+def _gather2d(flat, n_delta, mt_r, i_d, f_d):
+    """Bilinear (log10 Mturn, delta) gather from one radius' (or Ts shell's)
+    flattened (N_MTURN_TABLE, n_delta) table, at the delta index `i_d` and
+    weight `f_d`."""
+    lo, hi = MTURN_BOUNDS
+    tm = (torch.clamp(mt_r, lo, hi) - lo) / (hi - lo)
+    tm = torch.clamp(tm * (N_MTURN_TABLE - 1), 0.0, N_MTURN_TABLE - 1.001)
+    j0 = tm.to(torch.int64)  # tm >= 0 after the clamp: truncation is a floor
+    fm = tm - j0
+    base = j0 * n_delta + i_d
+    v00, v01 = flat[base], flat[base + 1]
+    v10, v11 = flat[base + n_delta], flat[base + n_delta + 1]
+    return (v00 * (1 - f_d) + v01 * f_d) * (1 - fm) + (v10 * (1 - f_d) + v11 * f_d) * fm
+
+
+def _delta_index(delta_r, d_lo, span):
+    """Index and weight of a density on a radius' N_DELTA_TABLE axis."""
+    t = torch.clamp((delta_r - d_lo) / span * (N_DELTA_TABLE - 1), 0.0, N_DELTA_TABLE - 1.001)
+    i0 = t.to(torch.int64)  # t >= 0 after the clamp: truncation is a floor
+    return i0, t - i0
+
+
+def _fcoll_mini_at_radius(delta_r, mta_r, mtm_r, step, prev_r, mini):
+    """ACG and MCG conditional Nion of one radius, after the trapezoidal
+    update from the previous snapshot when `prev_r` (its filtered density)
+    is given: Nion(z) = Nion_prev + Nion(z, Mt) - Nion(z_prev, Mt)."""
+    i0, fd = _delta_index(delta_r, step["d_lo"], step["span"])
+    fcoll = _gather2d(step["table"], N_DELTA_TABLE, mta_r, i0, fd)
+    fcoll = torch.clamp(torch.where(delta_r >= step["d_hi"], step["cap"], fcoll), 1e-40, 1.0)
+    fcoll_mini = _gather2d(step["table_mini"], N_DELTA_TABLE, mtm_r, i0, fd)
+    fcoll_mini = torch.clamp(
+        torch.where(delta_r >= step["d_hi"], step["cap_mini"], fcoll_mini), 1e-40, 1.0)
+    if prev_r is None:
+        return fcoll, fcoll_mini
+    pd_r = torch.clamp_min(prev_r, -1.0 + FRACT_FLOAT_ERR)
+    ip, fp = _delta_index(pd_r, step["p_d_lo"], step["p_span"])
+    prev_f = _gather2d(step["p_table"], N_DELTA_TABLE, mta_r, ip, fp)
+    prev_f = torch.clamp(torch.where(pd_r >= step["p_d_hi"], step["p_cap"], prev_f), 1e-40, 1.0)
+    prev_fm = _gather2d(step["p_table_mini"], N_DELTA_TABLE, mtm_r, ip, fp)
+    prev_fm = torch.clamp(
+        torch.where(pd_r >= step["p_d_hi"], step["p_cap_mini"], prev_fm), 1e-40, 1.0)
+    idx = step["idx"]
+    fcoll = torch.clamp(mini["prev_nion"][idx] + fcoll - prev_f, 1e-40, 1.0)
+    fcoll_mini = torch.clamp(mini["prev_nion_mini"][idx] + fcoll_mini - prev_fm, 1e-40, 1.0)
+    return fcoll, fcoll_mini
+
+
 def _fcoll_at_radius(delta_r, step, *, mass_dep, use_cheby, sigma_min, growth):
     """Conditional collapsed fraction (or Nion) of the filtered density."""
     if mass_dep and use_cheby:
@@ -192,17 +344,32 @@ def _fcoll_at_radius(delta_r, step, *, mass_dep, use_cheby, sigma_min, growth):
 def _ionize_scan(
     delta, prev_z_reion, steps, *, shape, box_lens, hii_filter, mass_dep, use_cheby,
     track_mfp, mean_fcoll, f_limit, ion_eff, gamma_prefactor, sigma_min, growth, redshift,
-    xe_box=None, rec_box=None, filter_recomb=False,
+    xe_box=None, rec_box=None, filter_recomb=False, mini=None,
 ):
     """Descending-R excursion-set loop.  `steps` holds the per-R scalars and
     tables ordered largest R first.  `xe_box` is the x-ray ionized fraction of
     a spin-temperature box; `rec_box` the cumulative recombinations per baryon
-    of the previous snapshot, filtered at each R when `filter_recomb`."""
+    of the previous snapshot, filtered at each R when `filter_recomb`.
+
+    `mini` (USE_MINI_HALOS) holds the turnover-mass boxes `mturn_a` and
+    `mturn_m`, the MCG scalars (`mean_fcoll_mini`, `f_limit_mini`,
+    `ion_eff_mini`, `gamma_prefactor_mini`) and, when the Nion history is
+    tracked, the previous snapshot's density `prev_delta` and its stacks
+    `prev_nion`, `prev_nion_mini`; the pre-mean-fix grids of every radius are
+    then written into the (n_R, N^3) stacks returned as the fifth and sixth
+    values (None without minihalos)."""
     kmag = grids.kmag_grid(shape, box_lens, delta.device)
     d_k = fft.rfft3(delta)
     xe_k = fft.rfft3(xe_box) if xe_box is not None else None
     rec_k = fft.rfft3(rec_box) if filter_recomb else None
     n_r = len(steps)
+    nion = nion_mini = None
+    if mini is not None:
+        mta_k, mtm_k = fft.rfft3(mini["mturn_a"]), fft.rfft3(mini["mturn_m"])
+        track = mini.get("prev_delta") is not None
+        pd_k = fft.rfft3(mini["prev_delta"]) if track else None
+        nion = torch.empty((n_r,) + tuple(shape), dtype=torch.float32, device=delta.device)
+        nion_mini = torch.empty_like(nion)
 
     # the neutral-fraction buffer starts at 1 (reference outputs.py:1525)
     xh = torch.ones_like(delta)
@@ -212,24 +379,40 @@ def _ionize_scan(
         r = step["R"]
         is_last = idx == n_r - 1
         # on the last (smallest-R) step the reference uses the UNFILTERED
-        # density (copy_filter_transform, IonisationBox.c:606-633)
+        # grids (copy_filter_transform, IonisationBox.c:606-633)
         def filtered(k_box, unfiltered):
             if is_last:
                 return unfiltered
             return fft.irfft3(filters.filter_kbox(k_box, kmag, hii_filter, r), shape)
 
-        delta_r = torch.clamp_min(filtered(d_k, delta), -1.0 + FRACT_FLOAT_ERR)
-        xe_r = torch.clamp(filtered(xe_k, xe_box), 0.0, 0.999) if xe_box is not None else 0.0
+        delta_r = filtered(d_k, delta)
+        xe_r = filtered(xe_k, xe_box) if xe_box is not None else None
+        if mini is not None:
+            mta_r = filtered(mta_k, mini["mturn_a"])
+            mtm_r = filtered(mtm_k, mini["mturn_m"])
+            pd_r = filtered(pd_k, mini["prev_delta"]) if track else None
+        delta_r = torch.clamp_min(delta_r, -1.0 + FRACT_FLOAT_ERR)
+        xe_r = torch.clamp(xe_r, 0.0, 0.999) if xe_box is not None else 0.0
 
-        fcoll = _fcoll_at_radius(
-            delta_r, step, mass_dep=mass_dep, use_cheby=use_cheby,
-            sigma_min=sigma_min, growth=growth,
-        )
+        if mini is not None:
+            fcoll, fcoll_mini = _fcoll_mini_at_radius(delta_r, mta_r, mtm_r, step, pd_r, mini)
+            # pre-mean-fix grids, for the next snapshot's trapezoid
+            nion[idx] = fcoll
+            nion_mini[idx] = fcoll_mini
+        else:
+            fcoll = _fcoll_at_radius(
+                delta_r, step, mass_dep=mass_dep, use_cheby=use_cheby,
+                sigma_min=sigma_min, growth=growth,
+            )
         # mean fix: normalize the grid mean to the global unconditional value
         grid_mean = torch.clamp_min(fcoll.mean(), f_limit)
         fcoll = fcoll * (mean_fcoll / grid_mean)
         if mass_dep:
             fcoll = torch.clamp_min(fcoll, f_limit)
+        if mini is not None:
+            grid_mean_mini = torch.clamp_min(fcoll_mini.mean(), mini["f_limit_mini"])
+            fcoll_mini = torch.clamp_min(
+                fcoll_mini * (mini["mean_fcoll_mini"] / grid_mean_mini), mini["f_limit_mini"])
 
         # recombinations per baryon: CELL_RECOMB uses the previous snapshot's
         # cumulative N_rec unfiltered, otherwise N_rec is filtered at each R
@@ -241,21 +424,30 @@ def _ionize_scan(
         else:
             rec = 0.0
 
-        ionized = fcoll * ion_eff > (1.0 - xe_r) * (1.0 + rec)
+        if mini is not None:
+            photons = fcoll * ion_eff + fcoll_mini * mini["ion_eff_mini"]
+            g_new = r * (gamma_prefactor * fcoll + mini["gamma_prefactor_mini"] * fcoll_mini)
+        else:
+            photons = fcoll * ion_eff
+            g_new = r * (gamma_prefactor * fcoll)
+        ionized = photons > (1.0 - xe_r) * (1.0 + rec)
         newly = ionized & (xh > FRACT_FLOAT_ERR)
-        gamma = torch.where(newly, r * (gamma_prefactor * fcoll), gamma)
+        gamma = torch.where(newly, g_new, gamma)
         if track_mfp:
             mfp = torch.where(newly, r, mfp)
         xh = torch.where(ionized, 0.0, xh)
 
         if is_last:
             # partial ionization on the last step (IonisationBox.c:1161-1196)
-            res = torch.clamp(1.0 - fcoll * ion_eff - xe_r, 0.0, 1.0)
+            res = 1.0 - fcoll * ion_eff
+            if mini is not None:
+                res = res - fcoll_mini * mini["ion_eff_mini"]
+            res = torch.clamp(res - xe_r, 0.0, 1.0)
             xh = torch.where((~ionized) & (xh > TINY), res, xh)
 
     keep = torch.where(prev_z_reion >= 0, prev_z_reion, -1.0)
     z_reion = torch.where(xh < TINY, torch.where(prev_z_reion >= 0, prev_z_reion, redshift), keep)
-    return xh, gamma, mfp, z_reion
+    return xh, gamma, mfp, z_reion, nion, nion_mini
 
 
 def _ionized_temperature(xh, z_reion, density, tk_neutral, t_re, redshift):
@@ -315,8 +507,6 @@ def check_inputs(inputs: InputParameters) -> None:
     """Raise NotImplementedError for ionization options outside the port."""
     mo = inputs.matter_options
     ao = inputs.astro_options
-    if ao.USE_MINI_HALOS:
-        not_in_slice("USE_MINI_HALOS", 11)
     if mo.SOURCE_MODEL == "L-INTEGRAL":
         not_in_slice("SOURCE_MODEL='L-INTEGRAL'", 12)
     if mo.source_model_uses_halo_sampler:
@@ -334,6 +524,8 @@ def compute_ionization_field(
     previous_ionized_box: IonizedBox | None = None,
     spin_temp: TsBox | None = None,
     prev_redshift: float | None = None,
+    previous_perturbed_field: PerturbedField | None = None,
+    vcb_box: torch.Tensor | None = None,
     *,
     device="cuda",
 ) -> IonizedBox:
@@ -342,8 +534,12 @@ def compute_ionization_field(
     `previous_ionized_box` carries z_reion and, with a recombination model,
     the cumulative recombinations forward (`prev_redshift` then gives the
     step); `spin_temp` brings the x-ray ionized fraction into the criterion
-    and the neutral gas's kinetic temperature.  The fields are moved to
-    `device` if they live elsewhere."""
+    and the neutral gas's kinetic temperature.  With USE_MINI_HALOS the
+    previous box's Gamma12, z_reion and Nion stacks, the TsBox's J_21_LW,
+    `previous_perturbed_field` (for the Nion history) and `vcb_box` (the ICs'
+    lowres |v_cb|; the scaling constants' mean speed when None) set the
+    turnover masses.  The fields are moved to `device` if they live
+    elsewhere."""
     dev = resolve_device(device)
     check_inputs(inputs)
     so = inputs.simulation_options
@@ -413,9 +609,67 @@ def compute_ionization_field(
             log10_Mturnover_MINI_ave=np.float32(0.0),
         )
 
+    # --- minihalo turnover-mass grids (calculate_mcrit_boxes:403) -----------
+    use_minihalos = ao.USE_MINI_HALOS and mass_dep
+    ion_eff_mini = sc.pop3_ion * sc.fstar_7 * sc.fesc_7
+    mean_fcoll_mini = f_limit_mini = 0.0
+    log10_mturn_m_ave = 0.0
+    prev_mfc = prev_mfc_mini = 0.0
+    if use_minihalos:
+        mturn_a_box, mturn_m_box = mcrit_boxes(
+            redshift, inputs, sc, previous_ionized_box, spin_temp, vcb_box, dev)
+        # the stage's one host sync: the float32 box means, as the JAX
+        # package takes them
+        log10_mturn_ave, log10_mturn_m_ave = torch.stack(
+            [mturn_a_box.mean(), mturn_m_box.mean()]).tolist()
+
+        # global normalizations at the mean turnovers
+        mt_a, mt_m = 10.0 ** log10_mturn_ave, 10.0 ** log10_mturn_m_ave
+        mean_fcoll = float(hmf.nion_general(
+            sigma_table, cosmo, hmf_int, redshift, ln_m_min, ln_m_max, mt_a, sc))
+        f_limit = float(hmf.nion_general(
+            sigma_table, cosmo, hmf_int, so.Z_HEAT_MAX, ln_m_min, ln_m_max, mt_a, sc))
+        mean_fcoll_mini = float(hmf.nion_general_mini(
+            sigma_table, cosmo, hmf_int, redshift, ln_m_min, ln_m_max, mt_m, sc))
+        f_limit_mini = float(hmf.nion_general_mini(
+            sigma_table, cosmo, hmf_int, so.Z_HEAT_MAX, ln_m_min, ln_m_max, mt_m, sc))
+
+        # trapezoidal update from the previous snapshot (set_mean_fcoll:463-529):
+        # MCG star formation follows the Mturn history, so the global Nion is
+        # carried as Nion_prev + Nion(z, Mt) - Nion(z_prev, Mt)
+        if previous_ionized_box is not None:
+            prev_mfc = float(previous_ionized_box.mean_f_coll)
+            prev_mfc_mini = float(previous_ionized_box.mean_f_coll_MINI)
+        if prev_redshift is not None and prev_mfc * ion_eff > 1e-4:
+            f_prev = float(hmf.nion_general(
+                sigma_table, cosmo, hmf_int, prev_redshift, ln_m_min, ln_m_max, mt_a, sc))
+            mean_fcoll = prev_mfc + mean_fcoll - f_prev
+        if prev_redshift is not None and prev_mfc_mini * ion_eff_mini > 1e-4:
+            f_prev_mini = float(hmf.nion_general_mini(
+                sigma_table, cosmo, hmf_int, prev_redshift, ln_m_min, ln_m_max, mt_m, sc))
+            mean_fcoll_mini = prev_mfc_mini + mean_fcoll_mini - f_prev_mini
+
+    track_nion = bool(
+        use_minihalos
+        and previous_ionized_box is not None
+        and previous_perturbed_field is not None
+        and prev_redshift is not None
+        and previous_ionized_box.unnormalised_nion is not None
+        and (prev_mfc * ion_eff + prev_mfc_mini * ion_eff_mini) > 1e-4
+    )
+
     ladder = setup_radii(inputs, m_min)
     n_r = ladder.n
-    if mass_dep:
+    if track_nion and previous_ionized_box.unnormalised_nion.shape[0] != n_r:
+        track_nion = False  # the radius ladder changed (m_min moved): restart
+    order = np.argsort(ladder.R)[::-1]  # descending: largest R first
+    l10_mturns = np.linspace(*MTURN_BOUNDS, N_MTURN_TABLE)
+    use_cheby = False
+    cheby_coeffs, cheby_edge = np.zeros((n_r, CHEBY_DEG + 1)), np.zeros(n_r)
+    if use_minihalos:
+        d_lo, d_hi, tables, caps, tables_mini, caps_mini = _build_nion_tables_mini(
+            inputs, ladder, sigma_table, growth, m_min, sc, l10_mturns)
+    elif mass_dep:
         d_lo, d_hi, tables, caps = _build_nion_tables(
             inputs, ladder, sigma_table, growth, m_min, sc
         )
@@ -425,7 +679,6 @@ def compute_ionization_field(
     else:
         d_lo, d_hi = np.zeros(n_r), np.ones(n_r)
         tables, caps = np.zeros((n_r, N_DELTA_TABLE)), np.zeros(n_r)
-        cheby_coeffs, cheby_edge, use_cheby = np.zeros((n_r, CHEBY_DEG + 1)), np.zeros(n_r), False
 
     gamma_prefactor = (
         (1 + redshift) ** 2
@@ -450,11 +703,41 @@ def compute_ionization_field(
         else:
             rec_box = torch.zeros(shape, dtype=torch.float32, device=dev)
 
+    def device_rows(a):
+        """Per-R table rows in scan order, flattened, as one float32 upload."""
+        return torch.as_tensor(
+            np.asarray(a[order], np.float32).reshape(n_r, -1), device=dev).unbind(0)
+
+    gather_rows = device_rows(tables) if mass_dep and not use_cheby else [None] * n_r
+    mini = None
+    if use_minihalos:
+        mini_rows = device_rows(tables_mini)
+        mini = dict(
+            mturn_a=mturn_a_box, mturn_m=mturn_m_box,
+            mean_fcoll_mini=float(_f32(mean_fcoll_mini)),
+            f_limit_mini=float(_f32(f_limit_mini)),
+            ion_eff_mini=float(_f32(ion_eff_mini)),
+            gamma_prefactor_mini=float(_f32(
+                gamma_prefactor * (ion_eff_mini / max(ion_eff, 1e-30)))),
+        )
+    if track_nion:
+        # the previous snapshot's tables, for Nion(z_prev, Mt)
+        p_lo, p_hi, p_tables, p_caps, p_tables_mini, p_caps_mini = _build_nion_tables_mini(
+            inputs, ladder, sigma_table, float(cosmo.dicke(prev_redshift)), m_min, sc,
+            l10_mturns)
+        p_rows, p_rows_mini = device_rows(p_tables), device_rows(p_tables_mini)
+        mini.update(
+            prev_delta=previous_perturbed_field.density.to(dev),
+            prev_nion=previous_ionized_box.unnormalised_nion.to(dev),
+            prev_nion_mini=previous_ionized_box.unnormalised_nion_mini.to(dev),
+        )
+
     # descending order (largest R first); every scalar rounded to float32
     steps = []
-    for i in np.argsort(ladder.R)[::-1]:
+    for k, i in enumerate(order):
         lo, hi = _f32(d_lo[i]), _f32(d_hi[i])
-        steps.append(dict(
+        step = dict(
+            idx=k,
             R=float(_f32(ladder.R[i])),
             sigma=_f32(ladder.sigma_max[i]),
             d_lo=float(lo),
@@ -463,13 +746,20 @@ def compute_ionization_field(
             cap=float(_f32(caps[i])),
             cheb=[float(c) for c in cheby_coeffs[i].astype(np.float32)],
             cheb_edge=float(_f32(cheby_edge[i])),
-            table=(
-                torch.as_tensor(tables[i], dtype=torch.float32, device=dev)
-                if mass_dep and not use_cheby else None
-            ),
-        ))
+            table=gather_rows[k],
+        )
+        if use_minihalos:
+            step.update(table_mini=mini_rows[k], cap_mini=float(_f32(caps_mini[i])))
+        if track_nion:
+            plo, phi = _f32(p_lo[i]), _f32(p_hi[i])
+            step.update(
+                p_d_lo=float(plo), p_d_hi=float(phi), p_span=float(phi - plo),
+                p_table=p_rows[k], p_cap=float(_f32(p_caps[i])),
+                p_table_mini=p_rows_mini[k], p_cap_mini=float(_f32(p_caps_mini[i])),
+            )
+        steps.append(step)
 
-    xh, gamma, mfp, z_reion = _ionize_scan(
+    xh, gamma, mfp, z_reion, nion_stack, nion_mini_stack = _ionize_scan(
         density, prev_z_reion, steps,
         shape=shape,
         box_lens=box_lens,
@@ -487,7 +777,9 @@ def compute_ionization_field(
         xe_box=spin_temp.xray_ionised_fraction.to(dev) if spin_temp is not None else None,
         rec_box=rec_box,
         filter_recomb=use_recomb and not ao.CELL_RECOMB,
+        mini=mini,
     )
+    del mini
 
     # --- cumulative recombination update (set_recombination_rates:1258-1342) ---
     cumulative_rec = None
@@ -544,10 +836,12 @@ def compute_ionization_field(
         z_reion=z_reion,
         ionisation_rate_G12=gamma,
         mean_f_coll=np.float32(mean_fcoll),
-        mean_f_coll_MINI=np.float32(0.0),
+        mean_f_coll_MINI=np.float32(mean_fcoll_mini),
         log10_Mturnover_ave=np.float32(log10_mturn_ave),
-        log10_Mturnover_MINI_ave=np.float32(0.0),
+        log10_Mturnover_MINI_ave=np.float32(log10_mturn_m_ave),
         kinetic_temperature=kinetic_temperature,
         mean_free_path=mfp,
         cumulative_recombinations=cumulative_rec,
+        unnormalised_nion=nion_stack,
+        unnormalised_nion_mini=nion_mini_stack,
     )

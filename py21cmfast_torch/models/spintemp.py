@@ -2,7 +2,7 @@
 
 Equivalent of reference SpinTemperatureBox.c (ts_main:1387-1949), following
 py21cmfast_tpu/models/spintemp.py for the Eulerian density path
-(E-INTEGRAL and CONST-ION-EFF sources, no minihalos):
+(E-INTEGRAL and CONST-ION-EFF sources, with or without minihalos):
 
  * Host (numpy float64, once per snapshot, `ts_host_tables`): the z'' shell
    ladder (setup_z_edges:312), Lyman-series spectral prefactors
@@ -16,6 +16,10 @@ py21cmfast_tpu/models/spintemp.py for the Eulerian density path
    radiative terms (`_ts_shell_scan`, the reference's R-loop :1562-1803), then
    the elementwise per-cell ODE step and Wouthuysen-Field Ts solve
    (`_ts_cell_update`, get_Ts_fast:1210-1384).
+ * With USE_MINI_HALOS, a per-cell log10 MCG turnover box (Lyman-Werner,
+   streaming-velocity and reionization feedback; ionization._mcrit_kernel) is
+   filtered per shell and drives a second, (log10 Mturn, delta) SFRD gather
+   for the Pop III stars, whose Lyman-Werner flux gives J_21_LW.
 
 Known approximations vs the reference (as in the JAX package):
  * Ly-a heating tables are generated from the Fokker-Planck solution
@@ -37,7 +41,17 @@ from ..inputs import InputParameters
 from ..ops import fft, filters, grids
 from ..outputs import PerturbedField, TsBox
 from . import heating, hmf, lya_heating
-from .ionization import CHEBY_DEG, CHEBY_X_SAFE, _clenshaw, _fit_log_cheby, _get_sigma_table
+from .ionization import (
+    CHEBY_DEG,
+    CHEBY_X_SAFE,
+    MTURN_BOUNDS,
+    N_MTURN_TABLE,
+    _clenshaw,
+    _fit_log_cheby,
+    _gather2d,
+    _get_sigma_table,
+    mcrit_boxes,
+)
 
 __all__ = ["compute_spin_temperature", "prefetch_sfrd_tables"]
 
@@ -309,7 +323,9 @@ def _sfrd_tables_for(zp, inputs, ladder, sigma_table, sc_zp):
 # device side
 
 
-def _accumulator_names(use_xray_heat: bool, use_lya_heat: bool) -> list[str]:
+def _accumulator_names(
+    use_xray_heat: bool, use_lya_heat: bool, use_minihalos: bool = False
+) -> list[str]:
     """The radiative accumulators the static flags use, in the order the shell
     loop returns them and the cell update reads them."""
     names = ["dxion", "dxlya", "dstarlya"]
@@ -317,6 +333,8 @@ def _accumulator_names(use_xray_heat: bool, use_lya_heat: bool) -> list[str]:
         names.insert(0, "dxheat")
     if use_lya_heat:
         names += ["dlya_cont", "dlya_inj"]
+    if use_minihalos:
+        names.append("dstarlw")
     return names
 
 
@@ -350,6 +368,7 @@ def _trilerp(tbl, t, s, g, t_ax, s_ax, g_ax):
 def _ts_shell_scan(
     density_pf, prev_xe, shells, inv_growth_pf, fstar10, *,
     shape, box_lens, heat_filter, use_xray_heat, use_lya_heat, use_cheby, const_model,
+    mcrit_box=None, mcrit_clip=0.0, fstar7=0.0, lx_ratio=0.0,
 ):
     """The radiative accumulators summed over the shells.
 
@@ -358,9 +377,15 @@ def _ts_shell_scan(
     mean_sfrd, p_star, p_cont, p_inj) and float32 tensors (table, table_fc,
     tbl_heat, tbl_ion, tbl_lya; the last three are the shell's 14-point
     frequency integrals).  `inv_growth_pf` and `fstar10` are float32-rounded
-    scalars.  Returns the accumulators named by `_accumulator_names`."""
+    scalars.  With minihalos, `mcrit_box` is the log10 MCG turnover box,
+    filtered per shell and clipped below at `mcrit_clip`, and each shell also
+    holds table_mini (its flattened (N_MTURN_TABLE, N_DELTA_SFRD) SFRD table),
+    mean_sfrd_mini, p_star_mini, p_cont_mini, p_inj_mini, p_lw and p_lw_mini.
+    Returns the accumulators named by `_accumulator_names`."""
+    use_minihalos = mcrit_box is not None
     kmag = grids.kmag_grid(shape, box_lens, density_pf.device)
     d_k = fft.rfft3(density_pf * inv_growth_pf)
+    mc_k = fft.rfft3(mcrit_box) if use_minihalos else None
 
     # per-cell x_e interpolation index into the 14-point deposition-fraction
     # axis: the count of nodes <= x_e, less one
@@ -375,12 +400,19 @@ def _ts_shell_scan(
         """A shell's 14-point frequency integrals at each cell's x_e."""
         return tbl[xidx] + ival * (tbl[xidx + 1] - tbl[xidx])
 
-    names = _accumulator_names(use_xray_heat, use_lya_heat)
+    names = _accumulator_names(use_xray_heat, use_lya_heat, use_minihalos)
     acc = {n: torch.zeros_like(density_pf) for n in names}
 
     for sh in shells:
         d_r = filters.filter_kbox(d_k, kmag, heat_filter, sh["R"]) if sh["do_filter"] else d_k
         delta0 = fft.irfft3(d_r, shape)
+        if use_minihalos:
+            # the filtered log10-Mcrit shell (reference fill_Rbox_table of
+            # log10_Mcrit_LW, SpinTemperatureBox.c:1464-1473), clipped below at
+            # the no-feedback LW threshold
+            mc_r = mc_k if not sh["do_filter"] else filters.filter_kbox(
+                mc_k, kmag, heat_filter, sh["R"])
+            mc_r = torch.clamp_min(fft.irfft3(mc_r, shape), mcrit_clip)
         # aliasing clip at delta = -1 in PERTURBED-FIELD-redshift units, i.e.
         # BEFORE the 1/D(z_pf) extrapolation factor (fill_Rbox_table:619-625).
         # delta0 is z=0-normalized, so the floor is -1/D(z_pf).
@@ -420,7 +452,23 @@ def _ts_shell_scan(
         scale = float(_f32(sh["zfac"]) * _f32(sh["mean_sfrd"]) * _f32(fstar10))
         sfr_term = (1.0 + delta_zpp) * (fcoll / ave_fcoll) * scale
         # L_X * s/yr and the unit conversions are folded into the tables (host)
-        xray_sfr = sfr_term * sh["xr_fac"]
+        if use_minihalos:
+            if use_cheby:
+                t = (delta_zpp - sh["d_lo"]) / span * (N_DELTA_SFRD - 1)
+                t = torch.clamp(t, 0.0, N_DELTA_SFRD - 1.001)
+                i0 = t.to(torch.int64)  # t >= 0 after the clamp: truncation is a floor
+                frac = t - i0
+            # bilinear (log10 Mcrit, delta) gather from the shell's 2D MCG SFRD
+            # table (reference calculate_sfrd_from_grid:1010-1060), with its
+            # own mean fix
+            fcoll_mini = _gather2d(sh["table_mini"], N_DELTA_SFRD, mc_r, i0, frac)
+            fcoll_mini = torch.clamp_min(fcoll_mini, 1e-35)
+            ave_mini = torch.clamp_min(fcoll_mini.mean(), 1e-35)
+            scale_mini = float(_f32(sh["zfac"]) * _f32(sh["mean_sfrd_mini"]) * _f32(fstar7))
+            sfr_term_mini = (1.0 + delta_zpp) * (fcoll_mini / ave_mini) * scale_mini
+            xray_sfr = (sfr_term + sfr_term_mini * lx_ratio) * sh["xr_fac"]
+        else:
+            xray_sfr = sfr_term * sh["xr_fac"]
 
         if use_xray_heat:
             acc["dxheat"] += xray_sfr * freq(sh["tbl_heat"])
@@ -432,6 +480,13 @@ def _ts_shell_scan(
             # (reference SpinTemperatureBox.c:1730-1737)
             acc["dlya_cont"] += sfr_term * sh["p_cont"]
             acc["dlya_inj"] += sfr_term * sh["p_inj"]
+            if use_minihalos:
+                acc["dlya_cont"] += sfr_term_mini * sh["p_cont_mini"]
+                acc["dlya_inj"] += sfr_term_mini * sh["p_inj_mini"]
+        if use_minihalos:
+            acc["dstarlya"] += sfr_term_mini * sh["p_star_mini"]
+            acc["dstarlw"] += sfr_term * sh["p_lw"]
+            acc["dstarlw"] += sfr_term_mini * sh["p_lw_mini"]
     return tuple(acc[n] for n in names)
 
 
@@ -459,7 +514,7 @@ def _interp_kappa(logt_knots, logk_knots, log_t, hh_slope=None):
 
 def _ts_cell_update(
     density_pf, prev_ts, prev_tk, prev_xe, accs, lya_tbl_cont, lya_tbl_inj, c, kappa_knots,
-    *, use_xray_heat, use_cmb_heat, use_lya_heat,
+    *, use_xray_heat, use_cmb_heat, use_lya_heat, use_minihalos=False,
 ):
     """Per-cell x_e/Tk ODE + WF spin-temperature solve (get_Ts_fast,
     SpinTemperatureBox.c:1210-1384).
@@ -467,8 +522,9 @@ def _ts_cell_update(
     `c` is the dict of per-snapshot constants, float32-rounded Python scalars
     (see `ts_host_tables`); the reference's unit prefactors span 1e-64..1e66
     individually and are folded on the host so that every quantity here stays
-    within float32's normal range.  Returns (Ts, Tk, x_e, J_alpha)."""
-    acc = dict(zip(_accumulator_names(use_xray_heat, use_lya_heat), accs))
+    within float32's normal range.  Returns (Ts, Tk, x_e, J_alpha, J_21_LW);
+    J_21_LW is None without minihalos."""
+    acc = dict(zip(_accumulator_names(use_xray_heat, use_lya_heat, use_minihalos), accs))
     zp, dzp, dt_dzp, trad = c["zp"], c["dzp"], c["dt_dzp"], c["trad"]
     fH, fHe = c["fH"], c["fHe"]
 
@@ -595,7 +651,8 @@ def _ts_cell_update(
         )
     ts_coll = (xcmb + xc) / (xcmb / trad + xc * t_inv)
     ts = torch.abs(torch.where(j_alpha > 1e-20, ts, ts_coll))
-    return ts, tk, x_e, j_alpha
+    j_lw = acc["dstarlw"] * c["s_lw"] if use_minihalos else None
+    return ts, tk, x_e, j_alpha, j_lw
 
 
 # ---------------------------------------------------------------------------
@@ -652,16 +709,14 @@ def _init_first_ts(redshift, inputs, perturbed_field, device="cuda"):
         spin_temperature=ts,
         xray_ionised_fraction=torch.full_like(dens, xe),
         kinetic_temp_neutral=tk_box,
+        J_21_LW=torch.zeros_like(dens) if inputs.astro_options.USE_MINI_HALOS else None,
     )
     return box, box
 
 
 def check_inputs(inputs: InputParameters) -> None:
     """Raise NotImplementedError for spin-temperature options outside the port."""
-    ao = inputs.astro_options
     mo = inputs.matter_options
-    if ao.USE_MINI_HALOS:
-        not_in_slice("USE_MINI_HALOS", 11)
     if mo.SOURCE_MODEL == "L-INTEGRAL":
         not_in_slice("SOURCE_MODEL='L-INTEGRAL'", 12)
     if mo.source_model_uses_halo_sampler:
@@ -687,18 +742,23 @@ def _norm_group(*arrs):
     return tuple(np.asarray(a, np.float64) / peak for a in arrs) + (peak,)
 
 
-def ts_host_tables(redshift, inputs, pf_redshift, prev_redshift, x_e_ave):
+def ts_host_tables(redshift, inputs, pf_redshift, prev_redshift, x_e_ave, ave_mcrit=0.0):
     """Everything the device side of one Ts step needs from the host, float64.
 
     `x_e_ave` is the mean x_e of the previous state (it sets the tau_X = 1
-    horizons).  Returns a dict with the per-shell arrays (`filter_R`,
+    horizons); with minihalos `ave_mcrit` is the mean of the log10 MCG
+    turnover box (it sets the MCG tau_X term and mean SFRD).  Returns a dict with the per-shell arrays (`filter_R`,
     `do_filter`, `growth`, `z_edge_factor`, `xray_r_factor`, `d_lo`, `d_hi`,
     `sfrd_tables`, `sfrd_tables_fc`, `sfrd_caps`, `sfrd_cheby`, `sfrd_edge`,
     `mean_sfrd`, `tbl_heat`, `tbl_ion`, `tbl_lya`, `starlya_pref`,
     `lya_cont_pref`, `lya_inj_pref`), the Ly-a heating tables, the flags
     `use_cheby` / `const_model` / `use_lya_heat`, `fstar10`, `kappa_knots`,
     and `consts`, the per-snapshot scalars of `_ts_cell_update` with the
-    peaks `s_*` of the normalised table groups."""
+    peaks `s_*` of the normalised table groups.  With minihalos also
+    `mcrit_clip`, `sfrd_tables_mini`, `mean_sfrd_mini`, the Pop III and LW
+    prefactors (`starlya_mini_pref`, `lya_cont_mini_pref`,
+    `lya_inj_mini_pref`, `lw_pref`, `lw_mini_pref`), `fstar7` and
+    `lx_ratio`."""
     so = inputs.simulation_options
     ao = inputs.astro_options
     ap = inputs.astro_params
@@ -769,6 +829,31 @@ def ts_host_tables(redshift, inputs, pf_redshift, prev_redshift, x_e_ave):
     def nion_of_z(z):
         return np.interp(z, z_grid, nion_vals)
 
+    # MCG contribution to the tau_X filling factor (nu_tau_one_MINI,
+    # heating_helper_progs.c:901-941 + fill_freqint_tables:838): per shell,
+    # the global MCG Nion(z) at the box's mean LW turnover mass (the shell
+    # filter keeps the mean), its log10 rounded to 3 decimals as the key of
+    # one curve
+    use_minihalos = bool(ao.USE_MINI_HALOS)
+    mcrit_clip = 0.0
+    nion_mini_shells = [None] * n_r
+    ion_eff_mini = 0.0
+    if use_minihalos:
+        mcrit_clip = float(np.log10(hmf.lyman_werner_threshold(redshift, 0.0, 0.0, ap)))
+    if use_minihalos and not const_model:
+        ion_eff_mini = sc_zp.pop3_ion * sc_zp.fstar_7 * sc_zp.fesc_7
+        key = round(float(max(ave_mcrit, mcrit_clip)), 3)
+        zg_mini = np.linspace(redshift * 0.999, ladder.zpp[-1] * 1.001, 48)
+        vals = np.array([
+            hmf.nion_general_mini(
+                sigma_table, cosmo, hmf_int, z,
+                float(np.log(hmf.minimum_source_mass(z, inputs, xray=True))),
+                ln_mmax, 10.0 ** key, sc_zp,
+            )
+            for z in zg_mini
+        ])
+        nion_mini_shells = [lambda zz: np.interp(zz, zg_mini, vals)] * n_r
+
     # tau_X = 1 horizons and frequency-integral tables.  Single-cell (0-D
     # global evolution) runs zero the collapsed fractions in the tau_X
     # integrand while <x_e> is still tiny, exactly like the reference
@@ -783,7 +868,8 @@ def ts_host_tables(redshift, inputs, pf_redshift, prev_redshift, x_e_ave):
                 heating.nu_tau_one(
                     redshift, ladder.zpp[i], x_e_ave, nion_of_z_tau, ion_eff,
                     cosmo.N_b0, cosmo.dtdz, cosmo.Y_He,
-                    nion_mini_of_z=None, ion_eff_mini=0.0,
+                    nion_mini_of_z=None if zero_fcoll_in_tau else nion_mini_shells[i],
+                    ion_eff_mini=0.0 if zero_fcoll_in_tau else ion_eff_mini,
                 ),
                 nu_th,
             )
@@ -831,6 +917,31 @@ def ts_host_tables(redshift, inputs, pf_redshift, prev_redshift, x_e_ave):
             cosmo.hubble(ladder.zpp)
         ) / ap.t_STAR
     xray_r_factor = (1 + ladder.zpp) ** (-ap.X_RAY_SPEC_INDEX)
+
+    # minihalo (MCG) SFRD: 2D (log10 Mcrit, delta) tables per shell, gathered
+    # at the filtered turnover box (reference calculate_sfrd_from_grid)
+    sfrd_tables_mini = np.zeros((n_r, 2, N_DELTA_SFRD))
+    mean_sfrd_mini = np.zeros(n_r)
+    if use_minihalos:
+        mturn_axis = np.linspace(*MTURN_BOUNDS, N_MTURN_TABLE)
+        sfrd_tables_mini = np.zeros((n_r, N_MTURN_TABLE, N_DELTA_SFRD))
+        for i in range(n_r):
+            zpp = float(ladder.zpp[i])
+            sc_pp = hmf.set_scaling_constants(zpp, inputs).without_esc()
+            sigma_cond = float(sigma_table.sigma_of_lnm(np.log(ladder.m_max[i])))
+            deltas = np.linspace(d_lo[i], d_hi[i], N_DELTA_SFRD)
+            sfrd_tables_mini[i] = hmf.build_nion_mturn_tables(
+                sigma_table, hmf_int, ladder.growth[i],
+                float(np.log(ladder.m_min[i])),
+                float(np.log(ladder.m_max[i])), sigma_cond, deltas,
+                mturn_axis, sc_pp, mini=True,
+                method=ao.INTEGRATION_METHOD_MINI,
+            )
+            mean_sfrd_mini[i] = hmf.nion_general_mini(
+                sigma_table, cosmo, hmf_int, zpp,
+                float(np.log(ladder.m_min[i])), ln_mmax,
+                10.0 ** max(ave_mcrit, mcrit_clip), sc_pp,
+            )
 
     # ---------------- per-snapshot constants (set_zp_consts:1098-1183) -------
     zp = redshift
@@ -905,6 +1016,8 @@ def ts_host_tables(redshift, inputs, pf_redshift, prev_redshift, x_e_ave):
     tbl_ion = tbl_ion * (xray_norm * lx_lin)
     tbl_lya = tbl_lya * (xray_norm * lx_lin * nb_zp)  # (1+delta) applied on device
     starlya_pref = starlya_pref * lya_norm
+    lya_cont_mini_pref = spec["cont_mini"]
+    lya_inj_mini_pref = spec["inj_mini"]
 
     # --- Ly-a heating tables (Fokker-Planck, see models/lya_heating.py) ---
     use_lya_heat = bool(ao.USE_LYA_HEATING)
@@ -922,12 +1035,16 @@ def ts_host_tables(redshift, inputs, pf_redshift, prev_redshift, x_e_ave):
         gp_norm = lya_heating.gunn_peterson_coef() / hubble_zp * n_zp
         lya_cont_pref = lya_cont_pref * lya_norm
         lya_inj_pref = lya_inj_pref * lya_norm
+        lya_cont_mini_pref = lya_cont_mini_pref * lya_norm
+        lya_inj_mini_pref = lya_inj_mini_pref * lya_norm
     else:
         lya_tbl_cont = np.zeros((2, 2, 2))
         lya_tbl_inj = np.zeros((2, 2, 2))
         gp_norm = 0.0
         lya_cont_pref = np.zeros_like(lya_cont_pref)
         lya_inj_pref = np.zeros_like(lya_inj_pref)
+        lya_cont_mini_pref = np.zeros_like(lya_cont_mini_pref)
+        lya_inj_mini_pref = np.zeros_like(lya_inj_mini_pref)
 
     cell_R = physconst.l_factor * so.box_len / so.HII_DIM
     if _FILTER_RADIUS_MODE == "inner":
@@ -944,12 +1061,18 @@ def ts_host_tables(redshift, inputs, pf_redshift, prev_redshift, x_e_ave):
     # the float32 device code and hand the true peaks to _ts_cell_update via
     # `consts`; each accumulator is rescaled exactly once on consumption, so
     # no device quantity is a float32 denormal whatever the flush mode.
+    # Groups that add into the same accumulator (the ACG and MCG prefactor
+    # pairs) share one scale; the LW pair is J_21_LW's, in units of 1e-21.
+    starlya_mini_f = spec["starlya_mini"] * lya_norm
+    lw_f = spec["lw"] * lya_norm * physconst.h_p * 1e21
+    lw_mini_f = spec["lw_mini"] * lya_norm * physconst.h_p * 1e21
     tbl_heat, s_heat = _norm_group(tbl_heat)
     tbl_ion, s_ion = _norm_group(tbl_ion)
     tbl_lya, s_lya = _norm_group(tbl_lya)
-    starlya_pref, s_star = _norm_group(starlya_pref)
-    lya_cont_pref, s_cont = _norm_group(lya_cont_pref)
-    lya_inj_pref, s_inj = _norm_group(lya_inj_pref)
+    starlya_pref, starlya_mini_f, s_star = _norm_group(starlya_pref, starlya_mini_f)
+    lya_cont_pref, lya_cont_mini_pref, s_cont = _norm_group(lya_cont_pref, lya_cont_mini_pref)
+    lya_inj_pref, lya_inj_mini_pref, s_inj = _norm_group(lya_inj_pref, lya_inj_mini_pref)
+    lw_f, lw_mini_f, s_lw = _norm_group(lw_f, lw_mini_f)
 
     consts = dict(
         zp=zp, dzp=dzp, growth_zp=growth_zp, inv_growth_pf=inv_growth_pf,
@@ -959,7 +1082,7 @@ def ts_host_tables(redshift, inputs, pf_redshift, prev_redshift, x_e_ave):
         dcomp_prefactor=dcomp_prefactor, clump=ap.CLUMPING_FACTOR, fH=fH, fHe=fHe,
         no_total=no_total, nb0_total=nb0_total,
         s_heat=s_heat, s_ion=s_ion, s_lya=s_lya, s_star=s_star, s_cont=s_cont,
-        s_inj=s_inj, gp_norm=gp_norm, dcmb_prefactor=dcmb_prefactor,
+        s_inj=s_inj, s_lw=s_lw, gp_norm=gp_norm, dcmb_prefactor=dcmb_prefactor,
     )
     kt = heating.kappa_tables()
     kappa_knots = tuple(
@@ -976,6 +1099,11 @@ def ts_host_tables(redshift, inputs, pf_redshift, prev_redshift, x_e_ave):
         lya_tbl_cont=lya_tbl_cont, lya_tbl_inj=lya_tbl_inj,
         use_cheby=use_cheby, const_model=const_model, use_lya_heat=use_lya_heat,
         fstar10=sc_zp.fstar_10, consts=consts, kappa_knots=kappa_knots,
+        use_minihalos=use_minihalos, mcrit_clip=mcrit_clip,
+        sfrd_tables_mini=sfrd_tables_mini, mean_sfrd_mini=mean_sfrd_mini,
+        starlya_mini_pref=starlya_mini_f, lya_cont_mini_pref=lya_cont_mini_pref,
+        lya_inj_mini_pref=lya_inj_mini_pref, lw_pref=lw_f, lw_mini_pref=lw_mini_f,
+        fstar7=sc_zp.fstar_7, lx_ratio=ap.l_x_mini / max(ap.l_x, 1e-30),
     )
 
 
@@ -1012,6 +1140,16 @@ def shells_from_tables(h, device):
             tbl_ion=t(h["tbl_ion"][i]),
             tbl_lya=t(h["tbl_lya"][i]),
         ))
+        if h["use_minihalos"]:
+            shells[-1].update(
+                table_mini=t(h["sfrd_tables_mini"][i].reshape(-1)),
+                mean_sfrd_mini=f(h["mean_sfrd_mini"][i]),
+                p_star_mini=f(h["starlya_mini_pref"][i]),
+                p_cont_mini=f(h["lya_cont_mini_pref"][i]),
+                p_inj_mini=f(h["lya_inj_mini_pref"][i]),
+                p_lw=f(h["lw_pref"][i]),
+                p_lw_mini=f(h["lw_mini_pref"][i]),
+            )
     return shells
 
 
@@ -1030,8 +1168,10 @@ def compute_spin_temperature(
 ):
     """Compute the TsBox at `redshift`, evolving from the previous snapshot.
 
-    Returns (ts_box, state); `state` is passed back as `prev_state`.  The
-    fields are moved to `device` if they live elsewhere."""
+    Returns (ts_box, state); `state` is passed back as `prev_state`.  With
+    minihalos `initial_conditions` gives the |v_cb| box (FLUCTS) and
+    `previous_ionized_box` the reionization feedback.  The fields are moved
+    to `device` if they live elsewhere."""
     dev = resolve_device(device)
     check_inputs(inputs)
     if source_box is not None:
@@ -1052,10 +1192,26 @@ def compute_spin_temperature(
     prev_xe = prev_state.xray_ionised_fraction.to(dev)
     density = perturbed_field.density.to(dev)
 
-    # the one host sync of the step: <x_e> feeds the tau_X = 1 root finds
-    x_e_ave = float(prev_xe.double().mean())
+    # minihalos: the per-cell log10 MCG turnover mass under LW, streaming and
+    # reionization feedback, from the previous J_21_LW, the ICs' |v_cb| and
+    # the previous IonizedBox's Gamma12 and z_reion
+    mcrit_box = None
+    if ao.USE_MINI_HALOS:
+        _, mcrit_box = mcrit_boxes(
+            redshift, inputs, hmf.set_scaling_constants(redshift, inputs),
+            previous_ionized_box, prev_state, getattr(initial_conditions, "lowres_vcb", None),
+            dev,
+        )
+
+    # the one host sync of the step: <x_e> feeds the tau_X = 1 root finds,
+    # the float32 mean of the turnover box the MCG terms
+    means = [prev_xe.double().mean()]
+    if mcrit_box is not None:
+        means.append(mcrit_box.mean().double())
+    means = torch.stack(means).tolist()
+    x_e_ave, ave_mcrit = means[0], (means[1] if mcrit_box is not None else 0.0)
     h = ts_host_tables(
-        redshift, inputs, float(perturbed_field.redshift), prev_redshift, x_e_ave
+        redshift, inputs, float(perturbed_field.redshift), prev_redshift, x_e_ave, ave_mcrit
     )
     consts = {k: float(_f32(v)) for k, v in h["consts"].items()}
 
@@ -1063,17 +1219,22 @@ def compute_spin_temperature(
         return torch.as_tensor(np.asarray(a, np.float32), device=dev)
 
     flags = dict(use_xray_heat=bool(ao.USE_X_RAY_HEATING), use_lya_heat=h["use_lya_heat"])
+    mini = {}
+    if mcrit_box is not None:
+        mini = dict(mcrit_box=mcrit_box, mcrit_clip=float(_f32(h["mcrit_clip"])),
+                    fstar7=float(_f32(h["fstar7"])), lx_ratio=float(_f32(h["lx_ratio"])))
     accs = _ts_shell_scan(
         density, prev_xe, shells_from_tables(h, dev),
         consts["inv_growth_pf"], float(_f32(h["fstar10"])),
         shape=so.lowres_shape, box_lens=so.box_lens, heat_filter=ao.heat_filter_int,
-        use_cheby=h["use_cheby"], const_model=h["const_model"], **flags,
+        use_cheby=h["use_cheby"], const_model=h["const_model"], **flags, **mini,
     )
-    ts, tk, x_e, j_lya = _ts_cell_update(
+    del mcrit_box, mini
+    ts, tk, x_e, j_lya, j_lw = _ts_cell_update(
         density, prev_ts, prev_tk, prev_xe, accs,
         tensor(h["lya_tbl_cont"]), tensor(h["lya_tbl_inj"]), consts,
         tuple(tensor(a) for a in h["kappa_knots"]),
-        use_cmb_heat=bool(ao.USE_CMB_HEATING), **flags,
+        use_cmb_heat=bool(ao.USE_CMB_HEATING), use_minihalos=h["use_minihalos"], **flags,
     )
 
     box = TsBox(
@@ -1081,6 +1242,7 @@ def compute_spin_temperature(
         spin_temperature=ts,
         xray_ionised_fraction=x_e,
         kinetic_temp_neutral=tk,
+        J_21_LW=j_lw,
         J_Lya=j_lya,
     )
     return box, box

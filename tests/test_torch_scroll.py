@@ -188,7 +188,7 @@ def test_no_evolution_means_no_coupling(calls):
 @pytest.mark.parametrize(
     "over, item",
     [
-        (dict(USE_TS_FLUCT=True, USE_MINI_HALOS=True), 11),
+        (dict(USE_TS_FLUCT=True, USE_MINI_HALOS=True), None),
         (dict(USE_TS_FLUCT=True, SOURCE_MODEL="L-INTEGRAL"), 12),
         (dict(USE_TS_FLUCT=True, HEAT_FILTER="SHARP-K"), None),
         (dict(RECOMB_MODEL="INHOMOGENEOUS", IONISE_ENTIRE_SPHERE=True, R_BUBBLE_MAX=5.0), 6),
@@ -200,6 +200,12 @@ def test_evolving_options_outside_the_slice_raise(over, item):
     if item is None:
         out = t21.run_coeval(inp, 8.0, device="cpu")
         assert np.isfinite(out.spin_temp.spin_temperature.numpy()).all()
+        if inp.astro_options.USE_MINI_HALOS:
+            # the minihalo state is carried down the node ladder
+            assert np.isfinite(out.spin_temp.J_21_LW.numpy()).all()
+            assert float(out.spin_temp.J_21_LW.max()) > 0.0
+            assert out.ionized_box.unnormalised_nion_mini.ndim == 4
+            assert float(out.ionized_box.log10_Mturnover_MINI_ave) > 5.0
         return
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 item {item}"):
         t21.run_coeval(inp, 8.0, device="cpu")

@@ -271,6 +271,14 @@ def test_entry_points_default_to_cuda(no_cuda, call):
         calls[call]()
 
 
+# options that once raised here and run since the minihalo slice
+RUN_ON_CPU = (
+    dict(USE_TS_FLUCT=True, USE_MINI_HALOS=True),
+    dict(USE_MINI_HALOS=True),
+    dict(V_CB_MODEL="FLUCTS"),
+)
+
+
 @pytest.mark.parametrize(
     "over",
     [
@@ -287,8 +295,25 @@ def test_entry_points_default_to_cuda(no_cuda, call):
     ids=lambda d: ",".join(f"{k}={v}" for k, v in d.items()),
 )
 def test_options_outside_the_slice_raise(over):
+    """Options outside the port raise; the minihalo and v_cb options (ROADMAP
+    Queue 1 item 11) now run on the CPU and give finite boxes."""
     inp = t21.InputParameters(random_seed=1).evolve_input_structs(
         HII_DIM=8, DIM=16, BOX_LEN=16.0, SOURCE_MODEL="E-INTEGRAL").evolve_input_structs(**over)
+    if over in RUN_ON_CPU:
+        out = t21.run_coeval(inp, 8.0, device="cpu")
+        ion = out.ionized_box
+        assert np.isfinite(ion.neutral_fraction.numpy()).all()
+        assert np.isfinite(out.brightness_temperature.brightness_temp.numpy()).all()
+        if inp.astro_options.USE_MINI_HALOS:
+            assert float(ion.log10_Mturnover_MINI_ave) > 5.0
+        if over.get("USE_TS_FLUCT"):
+            assert np.isfinite(out.spin_temp.J_21_LW.numpy()).all()
+        vcb = out.initial_conditions.lowres_vcb
+        assert (vcb is not None) == (over.get("V_CB_MODEL") == "FLUCTS")
+        if vcb is not None:
+            assert vcb.shape == (8, 8, 8)
+            assert float(vcb.min()) >= 0.0 and float(vcb.max()) > 0.0
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
         t21.run_coeval(inp, 8.0, device="cpu")
 
