@@ -31,6 +31,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      SHARP-K, 5 nodes) on the card against the CPU from one hires density:
      the v_cb box, then per node Ts, Tk, x_e, J_21_LW, the Nion stacks, xH
      and Tb per cell and the turnover means, then the cones as in 4d;
+  4f. golden-size L-INTEGRAL lightcones (the fixed-halos template; with
+     minihalos; with minihalos and the Lya multiple-scattering window, whose
+     Ts step reads straight-line LW shells), 5 nodes, on the card against
+     the CPU from one hires density: per node the HaloBox grids, every
+     XraySourceBox stack, Ts, Tk, x_e, J_21_LW, xH and Tb, then the cones as
+     in 4d;
   5. the first main path: run_coeval of the simple+size-medium template
      (HII_DIM=128, DIM=384, 256 Mpc) at z=10 and z=8, with every kernel's
      launch count zeroed just before and read just after;
@@ -55,7 +61,14 @@ Phases, in order; any failure raises and the script exits non-zero:
      box and ladder (256³/768³, 92 nodes to z=5, dvdr and RSDs), its ICs
      with the v_cb box timed first; as phase 9, with ⟨J_21_LW⟩ and the
      turnover means per node and the stages of the nodes nearest z=8 and
-     z=15.
+     z=15;
+  11. the fifth main path: the fixed-halos template (L-INTEGRAL sources
+     through the HaloBox and the XraySourceBox, USE_EXP_FILTER, CELL_RECOMB)
+     at the headline's box and ladder, as phase 9: seconds per node, peak
+     memory, 92 deposit launches, a fully written finite cone, and the node
+     nearest z=8 by stage (the HaloBox's host tables, gathers and
+     displacement scatter apart, the XraySourceBox, Ts, ionize, Tb), with
+     CUDA-event times of the displacement scatter.
 The line before the last is a JSON object of kernel numbers; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero and
 prints no result.
@@ -549,6 +562,8 @@ def _check_fields(z, lo, *structs):
     import torch
 
     for struct in structs:
+        if struct is None:
+            continue
         for name, v in vars(struct).items():
             if isinstance(v, torch.Tensor):
                 if tuple(v.shape[-3:]) != lo or v.ndim not in (3, 4) or not v.is_cuda:
@@ -731,7 +746,7 @@ def scroll_phase(kernels):
             if i in sample_at:
                 samples[i] = dict(z=cv.redshift, pf=cv.perturbed_field, prev_ts=prev[0],
                                   prev_ion=prev[1], prev_z=prev[2], ts=ts, ion=cv.ionized_box)
-            prev = (ts, _slim_chain_ion(cv.ionized_box), cv.redshift)
+            prev = (ts, _slim_chain_ion(cv.ionized_box, keep_xh=False), cv.redshift)
             t0 = time.perf_counter()
         total = time.perf_counter() - t_start
     finally:
@@ -780,12 +795,78 @@ def scroll_phase(kernels):
     return inputs, ics, [samples[i] for i in sorted(samples)]
 
 
+def _fixed_halos_stages(inputs, ics, s, z):
+    """The L-INTEGRAL stages of one node: the HaloBox whole and by its parts
+    (host tables, gathers, displacement scatter; the parts are not summed
+    into the node), the XraySourceBox from the scroll's history, the Ts step
+    that reads it, as (name, prepare, fn, summed)."""
+    from py21cmfast_torch.models import halobox as hbm
+    from py21cmfast_torch.models import spintemp, xray_source
+    from py21cmfast_torch.models.hmf import set_scaling_constants
+    from py21cmfast_torch.models.perturb import _displacement_factors
+
+    mini = inputs.astro_options.USE_MINI_HALOS
+    so = inputs.simulation_options
+    parts = {}
+
+    def mt_grids():
+        if not mini:
+            return None, None
+        return hbm._mcrit_grids(z, inputs, set_scaling_constants(z, inputs), s["prev_ts"],
+                                s["prev_ion"], ics.lowres_vcb)
+
+    def halobox_whole():
+        mt_a, mt_m = mt_grids()
+        return hbm.compute_fixed_halo_grid(z, inputs, ics.lowres_density, mt_a_grid=mt_a,
+                                           mt_m_grid=mt_m, ics=ics)
+
+    def prep_gather():
+        parts["h"], parts["mt"] = hbm.fixed_grid_tables(z, inputs), mt_grids()
+
+    def prep_scatter():
+        hb = s["halobox"]
+        props = [hb.n_ion, hb.halo_sfr, hb.whalo_sfr, hb.halo_xray, hb.halo_stars]
+        props += [hb.halo_sfr_mini, hb.halo_stars_mini] if mini else []
+        _, _, fac_za, fac_2lpt = _displacement_factors(inputs, z)
+        parts["scatter"] = (
+            props, (ics.vx, ics.vy, ics.vz), (ics.vx_2LPT, ics.vy_2LPT, ics.vz_2LPT),
+            float(np.float32(fac_za)), float(np.float32(fac_2lpt)),
+            float(np.float32(so.HII_DIM / so.box_len)))
+
+    def source_box():
+        return xray_source.compute_xray_source_field(
+            z, inputs, s["history"], previous_ionized_box=s["prev_ion"])
+
+    def prep_ts():
+        parts["source"] = source_box()
+
+    def ts_step():
+        return spintemp.compute_spin_temperature(
+            z, inputs, s["pf"], prev_state=s["prev_ts"], prev_redshift=s["prev_z"],
+            initial_conditions=ics, source_box=parts["source"], previous_ionized_box=s["prev_ion"])
+
+    stages = [
+        ("HaloBox", None, halobox_whole, True),
+        ("HaloBox host tables", None, lambda: hbm.fixed_grid_tables(z, inputs), False),
+        ("HaloBox gathers", prep_gather, lambda: hbm._gather_cells(
+            parts["h"], ics.lowres_density, *parts["mt"], one_plus_delta=False), False),
+        ("HaloBox displacement scatter", prep_scatter,
+         lambda: hbm._displace_grids(*parts["scatter"]), False),
+        ("XraySourceBox", None, source_box, True),
+        ("Ts", prep_ts, ts_step, True),
+    ]
+    return stages, parts
+
+
 def _node_stages(inputs, ics, s, tag):
     """Warm, synchronised per-stage times at one node of a scroll, each stage
     recomputed from the state the scroll handed it, then its device-busy
-    time from a second, profiled pass.  The Ts step is taken twice: building
-    its SFRD tables itself, and with them prefetched (the build is then
-    outside the timed call).  Returns the stages as (name, prepare, fn)."""
+    time from a second, profiled pass.  The Ts step of the density-sourced
+    models is taken twice: building its SFRD tables itself, and with them
+    prefetched (the build is then outside the timed call); with L-INTEGRAL
+    sources the HaloBox and XraySourceBox stages come first (see
+    `_fixed_halos_stages`).  Returns the stages as (name, prepare, fn,
+    summed into the node)."""
     import py21cmfast_torch as p21
     from py21cmfast_torch.models import spintemp
 
@@ -795,25 +876,33 @@ def _node_stages(inputs, ics, s, tag):
             fut.result()
 
     z = s["z"]
+    lagrangian = inputs.matter_options.SOURCE_MODEL == "L-INTEGRAL"
+    parts = {}
 
     def ts_step():
         return spintemp.compute_spin_temperature(
             z, inputs, s["pf"], prev_state=s["prev_ts"], prev_redshift=s["prev_z"],
             initial_conditions=ics, previous_ionized_box=s["prev_ion"])
 
-    stages = [
-        ("perturb", None, lambda: p21.perturb_field(z, inputs, ics)),
-        ("Ts (builds its tables)", None, ts_step),
-        ("Ts (tables prefetched)", lambda: prefetch_now(z), ts_step),
+    stages = [("perturb", None, lambda: p21.perturb_field(z, inputs, ics), True)]
+    if lagrangian:
+        lagr_stages, parts = _fixed_halos_stages(inputs, ics, s, z)
+        stages += lagr_stages
+    else:
+        stages += [
+            ("Ts (builds its tables)", None, ts_step, False),
+            ("Ts (tables prefetched)", lambda: prefetch_now(z), ts_step, True),
+        ]
+    stages += [
         ("ionize", None, lambda: p21.compute_ionization_field(
             z, inputs, s["pf"], previous_ionized_box=s["prev_ion"], spin_temp=s["ts"],
             prev_redshift=s["prev_z"], previous_perturbed_field=s.get("prev_pf"),
-            vcb_box=ics.lowres_vcb)),
+            vcb_box=ics.lowres_vcb, halobox=s.get("halobox")), True),
         ("Tb", None, lambda: p21.brightness_temperature(
-            inputs, s["ion"], s["pf"], spin_temp=s["ts"])),
+            inputs, s["ion"], s["pf"], spin_temp=s["ts"]), True),
     ]
     walls, busies = [], []
-    for name, prepare, fn in stages:
+    for name, prepare, fn, summed in stages:
         if prepare:
             prepare()
         _, wall = _sync_time(fn)
@@ -826,12 +915,19 @@ def _node_stages(inputs, ics, s, tag):
                  f"unprofiled wall), top kernels {busy[1]}"
         )
         print(f"[{tag}] z={z:.3f} {name}: {wall * 1e3:.2f} ms wall; {busy_txt}")
-        if name != "Ts (builds its tables)":
+        if summed:
             walls.append(wall * 1e3)
             busies.append(0.0 if busy is None else busy[0])
-    print(f"[{tag}] z={z:.3f} node of perturb, Ts (tables prefetched), ionize, Tb: "
-          f"{sum(walls):.2f} ms wall, {sum(busies):.3f} ms device busy "
-          f"({100 * sum(busies) / sum(walls):.1f}%)")
+    summed = ", ".join(name for name, _, _, on in stages if on)
+    print(f"[{tag}] z={z:.3f} node of {summed}: {sum(walls):.2f} ms wall, {sum(busies):.3f} ms "
+          f"device busy ({100 * sum(busies) / sum(walls):.1f}%)")
+    if lagrangian:
+        n_props = len(parts["scatter"][0])
+        ms = _event_median_ms(lambda: stages[4][2](), reps=10)
+        print(f"[{tag}] z={z:.3f} _displace_grids ({n_props} property grids of "
+              f"{inputs.simulation_options.lowres_shape}, 8 CIC corners each): {ms:.3f} ms a call "
+              f"(CUDA events, median of 10)")
+        parts.clear()
     return stages
 
 
@@ -844,7 +940,7 @@ def scroll_stage_phase(inputs, ics, samples):
     for s in samples:
         stages = _node_stages(inputs, ics, s, "scroll-stages")
     z = samples[-1]["z"]
-    for name, prepare, fn in stages[2:4]:
+    for name, prepare, fn, _ in stages[2:4]:
         if prepare:
             prepare()
         prof = cProfile.Profile()
@@ -1049,6 +1145,118 @@ def minihalo_small_phase():
     _card_vs_cpu_cones(label, inputs, runs)
 
 
+FIXED_HALOS_TEMPLATE = "fixed-halos"
+# phase 4f's golden-size L-INTEGRAL lightcones, by what they add to the template
+FIXED_HALOS_SMALL = {
+    "fixed-halos lightcone": dict(),
+    "L-INTEGRAL+minihalos lightcone": dict(USE_MINI_HALOS=True),
+    "L-INTEGRAL+minihalos+Lya-multiple-scattering lightcone": dict(
+        USE_MINI_HALOS=True, LYA_MULTIPLE_SCATTERING=True),
+}
+HALOBOX_FIELDS = ("n_ion", "halo_sfr", "whalo_sfr", "halo_xray", "halo_stars", "halo_sfr_mini",
+                  "halo_stars_mini")
+SOURCE_FIELDS = ("filtered_sfr", "filtered_xray", "filtered_sfr_mini", "filtered_sfr_lw",
+                 "filtered_sfr_mini_lw")
+
+
+def _host_fields(struct, names):
+    return {n: None if getattr(struct, n) is None else getattr(struct, n).cpu().double()
+            for n in names}
+
+
+def fixed_halos_small_phase():
+    """Golden-size L-INTEGRAL lightcones on the card against the CPU, from one
+    hires density: the fixed-halos template, with minihalos, and with
+    minihalos and the Lya multiple-scattering window (straight-line LW
+    shells).  Per node: the HaloBox grids and every XraySourceBox stack at
+    most 1e-3 of the cells off by 1e-4 of the maximum (of the stack's shell);
+    Ts, Tk, x_e, J_21_LW, xH and Tb as in phase 4e; then the cones as in 4d."""
+    import py21cmfast_torch as p21
+    from py21cmfast_torch.models import xray_source
+
+    size = {k: v for k, v in GOLDEN_SIZE.items() if k != "SOURCE_MODEL"}
+    source_field = xray_source.compute_xray_source_field
+    for label, over in FIXED_HALOS_SMALL.items():
+        inputs = p21.InputParameters.from_template(
+            FIXED_HALOS_TEMPLATE, random_seed=SEED
+        ).evolve_input_structs(**size, R_BUBBLE_MAX=12.0, **over).with_logspaced_redshifts(10.5, 25.0)
+        if inputs.matter_options.SOURCE_MODEL != "L-INTEGRAL":
+            raise AssertionError(f"{FIXED_HALOS_TEMPLATE} does not use L-INTEGRAL sources")
+        ics_cpu = p21.compute_initial_conditions(inputs, device="cpu")
+        ics_gpu = p21.compute_initial_conditions(inputs, initial_density=ics_cpu.hires_density.numpy())
+        runs, nodes = {}, {}
+        for dev, ics in (("cpu", ics_cpu), ("cuda", ics_gpu)):
+            sources = {}
+
+            def recorded(z, *a, sources=sources, **kw):
+                out = source_field(z, *a, **kw)
+                sources[z] = _host_fields(out, SOURCE_FIELDS)
+                return out
+
+            lcr, written = _tracked_lightconer(inputs)
+            nodes[dev] = []
+            xray_source.compute_xray_source_field = recorded
+            try:
+                for z, cv, lc in p21.generate_lightcone(
+                        inputs, lightconer=lcr, initial_conditions=ics, device=dev):
+                    if z is not None:
+                        fields, _, _ = _minihalo_node(cv)
+                        fields.update(_host_fields(cv.halobox, HALOBOX_FIELDS))
+                        nodes[dev].append((z, fields))
+            finally:
+                xray_source.compute_xray_source_field = source_field
+            for z, fields in nodes[dev]:
+                fields["source"] = sources.get(z)
+            runs[dev] = (lc, written, _check_written(written, lcr, inputs, f"{label} on {dev}"))
+
+        ok = True
+        n_sources = 0
+        for (z, c), (_, g) in zip(nodes["cpu"], nodes["cuda"]):
+            worst = {}
+            for name in MINIHALO_FIELDS["spin_temp"]:
+                cc, gg = c[name], g[name]
+                if (cc is None) != (gg is None):
+                    raise AssertionError(f"{label} z={z:.3f}: {name} on one device only")
+                if cc is None:
+                    continue
+                rel = ((gg - cc).abs() / cc.abs().clamp_min(1e-30)).max().item()
+                mean_rel = abs(gg.mean().item() - cc.mean().item()) / max(abs(cc.mean().item()), 1e-30)
+                worst[name] = rel
+                ok &= rel <= 1e-3 and mean_rel <= 1e-4
+            flipped = ((g["neutral_fraction"] - c["neutral_fraction"]).abs() > 1e-3).double().mean().item()
+            ok &= flipped <= 1e-3
+            shares = {}
+            grids = [(n, c[n], g[n]) for n in ("brightness_temp",) + HALOBOX_FIELDS]
+            if (c["source"] is None) != (g["source"] is None):
+                raise AssertionError(f"{label} z={z:.3f}: an XraySourceBox on one device only")
+            if c["source"] is not None:
+                n_sources += 1
+                grids += [(n, c["source"][n], g["source"][n]) for n in SOURCE_FIELDS]
+            for name, cc, gg in grids:
+                if (cc is None) != (gg is None):
+                    raise AssertionError(f"{label} z={z:.3f}: {name} on one device only")
+                if cc is None:
+                    continue
+                # a stack is held shell by shell, against the shell's maximum
+                scale = (cc.abs().amax(dim=(-3, -2, -1), keepdim=True) if cc.ndim == 4
+                         else cc.abs().max())
+                diff = (gg - cc).abs()
+                shares[name] = ((diff > 1e-4 * scale).double().mean().item(),
+                                (diff / scale.clamp_min(1e-30)).max().item())
+                ok &= shares[name][0] <= 1e-3
+            print(f"[fixed-halos-small] {label} z={z:.3f}: worst cell rel "
+                  f"{{{', '.join(f'{k}: {v:.2e}' for k, v in worst.items())}}} (limit 1e-3); xH "
+                  f"flipped share {flipped:.2e}; (share off by > 1e-4 max, max err / max) "
+                  f"{{{', '.join(f'{k}: ({v[0]:.2e}, {v[1]:.2e})' for k, v in shares.items())}}}")
+        if not ok:
+            raise AssertionError(f"the golden-size {label}'s nodes on the card disagree with the CPU run")
+        if n_sources != len(inputs.node_redshifts) - 1:
+            raise AssertionError(f"{label}: {n_sources} XraySourceBoxes in {len(nodes['cpu'])} nodes")
+        if over.get("LYA_MULTIPLE_SCATTERING") and nodes["cuda"][-1][1]["source"]["filtered_sfr_lw"] is None:
+            raise AssertionError(f"{label}: no straight-line LW shells")
+        _card_vs_cpu_cones(label, inputs, runs)
+
+
 HEADLINE_SEED = 3
 HEADLINE_Z_END = 5.0
 HEADLINE_BOX = dict(HII_DIM=256, DIM=768, BOX_LEN=384.0, Z_HEAT_MAX=35.0, ZPRIME_STEP_FACTOR=1.02,
@@ -1075,6 +1283,17 @@ def _minihalo_headline_inputs():
 
     return p21.InputParameters.from_template(
         MINIHALO_TEMPLATE, random_seed=HEADLINE_SEED
+    ).evolve_input_structs(**HEADLINE_BOX).with_logspaced_redshifts(HEADLINE_Z_END)
+
+
+def _fixed_halos_headline_inputs():
+    """The fixed-halos template (L-INTEGRAL, USE_EXP_FILTER, CELL_RECOMB,
+    USE_TS_FLUCT, inhomogeneous recombinations, R_BUBBLE_MAX=50) at the
+    headline's box and node ladder."""
+    import py21cmfast_torch as p21
+
+    return p21.InputParameters.from_template(
+        FIXED_HALOS_TEMPLATE, random_seed=HEADLINE_SEED
     ).evolve_input_structs(**HEADLINE_BOX).with_logspaced_redshifts(HEADLINE_Z_END)
 
 
@@ -1110,10 +1329,12 @@ def lightcone_phase(kernels, inputs, ics, ics_s, tag, path, sample_z):
     import py21cmfast_torch as p21
     from py21cmfast_torch import rsds
     from py21cmfast_torch.drivers.coeval import _slim_chain_ion, _slim_chain_pf
+    from py21cmfast_torch.models import xray_source
     from py21cmfast_torch.ops import deposit
 
     so = inputs.simulation_options
     mini = inputs.astro_options.USE_MINI_HALOS
+    lagrangian = inputs.matter_options.SOURCE_MODEL == "L-INTEGRAL"
     nodes = list(inputs.node_redshifts)
     sample_at = sorted({int(np.argmin(np.abs(np.asarray(nodes) - z))) for z in sample_z})
     lcr, written = _tracked_lightconer(inputs)
@@ -1137,12 +1358,24 @@ def lightcone_phase(kernels, inputs, ics, ics_s, tag, path, sample_z):
 
     steps = {"dvdr": "include_dvdr_in_tau21", "RSDs": "apply_rsds"}
     originals = {name: getattr(rsds, attr) for name, attr in steps.items()}
+    # L-INTEGRAL: generate_coeval's HaloBox history as the sampled nodes'
+    # source boxes read it (grids the scroll holds anyway, kept for the stages)
+    histories = {}
+    source_field = xray_source.compute_xray_source_field
+    sample_zs = {nodes[i] for i in sample_at}
+
+    def recorded_source(z, inputs_, halobox_nodes, *a, **kw):
+        if z in sample_zs:
+            histories[z] = list(halobox_nodes)
+        return source_field(z, inputs_, halobox_nodes, *a, **kw)
+
     wrappers = {"cic_deposit_swept": deposit.cic_deposit_swept}
     torch.cuda.reset_peak_memory_stats()
     for w in wrappers.values():
         w.launches = 0
     for name, attr in steps.items():
         setattr(rsds, attr, timed(name, originals[name]))
+    xray_source.compute_xray_source_field = recorded_source
     seconds, xh, mini_means, samples, prev, lc = [], [], [], {}, None, None
     try:
         torch.cuda.synchronize()
@@ -1157,8 +1390,10 @@ def lightcone_phase(kernels, inputs, ics, ics_s, tag, path, sample_z):
             seconds.append(time.perf_counter() - t0)
             if z != nodes[i]:
                 raise AssertionError(f"node {i}: yielded z={z}, expected {nodes[i]}")
-            _check_fields(z, so.lowres_shape, cv.perturbed_field, cv.spin_temp,
+            _check_fields(z, so.lowres_shape, cv.perturbed_field, cv.halobox, cv.spin_temp,
                           cv.ionized_box, cv.brightness_temperature)
+            if lagrangian and cv.halobox is None:
+                raise AssertionError(f"node {i}: no HaloBox")
             xh.append(cv.neutral_fraction.double().mean().item())
             ion = cv.ionized_box
             if mini:
@@ -1168,9 +1403,10 @@ def lightcone_phase(kernels, inputs, ics, ics_s, tag, path, sample_z):
                 samples[i] = dict(
                     z=z, pf=_moved(cv.perturbed_field, "cpu"), ts=_moved(cv.spin_temp, "cpu"),
                     ion=_moved(_without_stacks(ion), "cpu"), prev_ts=_moved(prev[0], "cpu"),
-                    prev_ion=_moved(prev[1], "cpu"), prev_pf=_moved(prev[2], "cpu"), prev_z=prev[3])
+                    prev_ion=_moved(prev[1], "cpu"), prev_pf=_moved(prev[2], "cpu"), prev_z=prev[3],
+                    halobox=_moved(cv.halobox, "cpu"), history=histories.pop(z, None))
             # what the next node's stages read, its Nion stacks only if it is sampled
-            prev_ion = _slim_chain_ion(ion)
+            prev_ion = _slim_chain_ion(ion, keep_xh=cv.halobox is not None)
             prev = (cv.spin_temp,
                     prev_ion if i + 1 in sample_at else _without_stacks(prev_ion),
                     _slim_chain_pf(cv.perturbed_field, needed=mini), z)
@@ -1180,6 +1416,7 @@ def lightcone_phase(kernels, inputs, ics, ics_s, tag, path, sample_z):
     finally:
         for name, attr in steps.items():
             setattr(rsds, attr, originals[name])
+        xray_source.compute_xray_source_field = source_field
     launches = {name: w.launches for name, w in wrappers.items()}
     peak = torch.cuda.max_memory_allocated() / 2**30
     del prev, cv
@@ -1241,7 +1478,8 @@ def lightcone_phase(kernels, inputs, ics, ics_s, tag, path, sample_z):
     del lc, cone
     torch.cuda.empty_cache()
     for i in sample_at:
-        s = {k: _moved(v, "cuda") if k not in ("z", "prev_z") else v for k, v in samples.pop(i).items()}
+        s = {k: _moved(v, "cuda") if k not in ("z", "prev_z", "history") else v
+             for k, v in samples.pop(i).items()}
         _node_stages(inputs, ics, s, f"{tag}-stages")
         del s
         torch.cuda.empty_cache()
@@ -1287,6 +1525,22 @@ def minihalo_headline_phase(kernels):
     lightcone_phase(kernels, inputs, ics, ics_s, "munoz21", "minihalo_lightcone", (8.0, 15.0))
 
 
+def fixed_halos_headline_phase(kernels):
+    """Phase 11: the fixed-halos lightcone at the headline's box and ladder,
+    from its ICs computed and timed first; the stages of the node nearest
+    z=8."""
+    import torch
+
+    import py21cmfast_torch as p21
+
+    inputs = _fixed_halos_headline_inputs()
+    if inputs.matter_options.SOURCE_MODEL != "L-INTEGRAL":
+        raise AssertionError(f"{FIXED_HALOS_TEMPLATE} does not use L-INTEGRAL sources")
+    ics, ics_s = _sync_time(lambda: p21.compute_initial_conditions(inputs))
+    torch.cuda.empty_cache()
+    lightcone_phase(kernels, inputs, ics, ics_s, "fixed-halos", "fixed_halos_lightcone", (8.0,))
+
+
 def main():
     import torch
 
@@ -1304,6 +1558,7 @@ def main():
     evolving_small_phase()
     lightcone_small_phase()
     minihalo_small_phase()
+    fixed_halos_small_phase()
     main_path_phase(kernels)
     stage_phase()
     scroll_stage_phase(*scroll_phase(kernels))
@@ -1311,6 +1566,8 @@ def main():
     del headline
     torch.cuda.empty_cache()
     minihalo_headline_phase(kernels)
+    torch.cuda.empty_cache()
+    fixed_halos_headline_phase(kernels)
     print(f"[total] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

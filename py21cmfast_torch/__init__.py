@@ -4,7 +4,9 @@ It runs the coeval (ICs -> 2LPT perturb with the swept CIC deposit ->
 excursion-set ionization -> brightness temperature), one redshift at a time
 with a saturated spin temperature or evolved down the node redshifts with
 the spin temperature and recombinations, and the lightcone assembled from
-that scroll with the velocity-gradient correction and RSDs, with the JAX
+that scroll with the velocity-gradient correction and RSDs, for the
+density-conditioned (E-INTEGRAL, CONST-ION-EFF) and fixed-grid (L-INTEGRAL,
+through the HaloBox and the XraySourceBox) source models, with the JAX
 package's names and inputs.  Device fields are float32 tensors, host tables float64.  Every entry point takes `device="cuda"` and runs on the card;
 the CPU is used only when the caller passes `device="cpu"`.  Options that are
 not ported yet raise NotImplementedError naming the ROADMAP item that brings
@@ -40,7 +42,16 @@ from .models.ics import compute_initial_conditions
 from .models.ionization import compute_ionization_field
 from .models.perturb import perturb_field
 from .models.spintemp import compute_spin_temperature
-from .outputs import BrightnessTemp, InitialConditions, IonizedBox, PerturbedField, TsBox
+from .models.xray_source import compute_xray_source_field
+from .outputs import (
+    BrightnessTemp,
+    HaloBox,
+    InitialConditions,
+    IonizedBox,
+    PerturbedField,
+    TsBox,
+    XraySourceBox,
+)
 
 __all__ = [
     "_DATA_PATH",
@@ -50,6 +61,7 @@ __all__ = [
     "BrightnessTemp",
     "Coeval",
     "CosmoParams",
+    "HaloBox",
     "InfinityOrNaNError",
     "InitialConditions",
     "InputParameters",
@@ -62,11 +74,13 @@ __all__ = [
     "RectilinearLightconer",
     "SimulationOptions",
     "TsBox",
+    "XraySourceBox",
     "__version__",
     "brightness_temperature",
     "compute_initial_conditions",
     "compute_ionization_field",
     "compute_spin_temperature",
+    "compute_xray_source_field",
     "config",
     "create_params_from_template",
     "generate_coeval",

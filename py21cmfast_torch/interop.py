@@ -24,7 +24,15 @@ from .inputs import (
     MatterOptions,
     SimulationOptions,
 )
-from .outputs import BrightnessTemp, InitialConditions, IonizedBox, PerturbedField, TsBox
+from .outputs import (
+    BrightnessTemp,
+    HaloBox,
+    InitialConditions,
+    IonizedBox,
+    PerturbedField,
+    TsBox,
+    XraySourceBox,
+)
 
 __all__ = [
     "inputs_from_dict",
@@ -33,6 +41,8 @@ __all__ = [
     "ionized_box_from_numpy",
     "brightness_temp_from_numpy",
     "ts_box_from_numpy",
+    "halobox_from_numpy",
+    "xray_source_box_from_numpy",
     "coeval_from_numpy",
 ]
 
@@ -92,11 +102,21 @@ def ts_box_from_numpy(arrays: dict, device="cuda") -> TsBox:
     return _struct_from_numpy(TsBox, arrays, device)
 
 
+def halobox_from_numpy(arrays: dict, device="cuda") -> HaloBox:
+    return _struct_from_numpy(HaloBox, arrays, device)
+
+
+def xray_source_box_from_numpy(arrays: dict, device="cuda") -> XraySourceBox:
+    return _struct_from_numpy(XraySourceBox, arrays, device)
+
+
 def coeval_from_numpy(arrays: dict, device="cuda") -> Coeval:
     """A Coeval from `{"redshift": z, "initial_conditions": {..},
     "perturbed_field": {..}, "ionized_box": {..}, "brightness_temperature":
-    {..}, "spin_temp": {..} or None}`, each struct a dict of numpy arrays."""
+    {..}, "spin_temp": {..} or None, "halobox": {..} or None}`, each struct a
+    dict of numpy arrays."""
     ts = arrays.get("spin_temp")
+    hb = arrays.get("halobox")
     return Coeval(
         redshift=float(arrays["redshift"]),
         initial_conditions=initial_conditions_from_numpy(arrays["initial_conditions"], device),
@@ -104,4 +124,5 @@ def coeval_from_numpy(arrays: dict, device="cuda") -> Coeval:
         ionized_box=ionized_box_from_numpy(arrays["ionized_box"], device),
         brightness_temperature=brightness_temp_from_numpy(arrays["brightness_temperature"], device),
         spin_temp=None if ts is None else ts_box_from_numpy(ts, device),
+        halobox=None if hb is None else halobox_from_numpy(hb, device),
     )

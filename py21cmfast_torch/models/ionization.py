@@ -18,6 +18,13 @@ delta) tables, and the pre-mean-fix grids of each radius are kept as the
 `unnormalised_nion(_mini)` stacks for the next snapshot's trapezoidal Nion
 update (IonisationBox.c:834-880).
 
+With a Lagrangian source model (L-INTEGRAL) the HaloBox's ionizing-photon
+and ionizing-SFR grids, filtered at each radius (by the exponential-MFP
+tophat under USE_EXP_FILTER), take the place of the conditional Nion tables
+and of the mean fix (IonisationBox.c:615-621, 1054-1067).  With
+IONISE_ENTIRE_SPHERE the whole sphere around each newly ionized cell is
+ionized (bubble_helper_progs.c:341).
+
 The host precomputes (per snapshot, float64): the radius ladder, sigma(M(R)),
 the global Nion/Fcoll normalizations and the per-R conditional-Nion tables
 (reference setup_integration_tables:702-768, interp_tables.c:291-579).
@@ -37,7 +44,7 @@ from ..cosmology.constants import FRACT_FLOAT_ERR, TINY, physconst
 from ..cosmology.recombination import RecombinationHistory
 from ..inputs import InputParameters
 from ..ops import fft, filters, grids
-from ..outputs import IonizedBox, PerturbedField, TsBox
+from ..outputs import HaloBox, IonizedBox, PerturbedField, TsBox
 from . import hmf
 from . import recomb as recomb_module
 
@@ -344,7 +351,8 @@ def _fcoll_at_radius(delta_r, step, *, mass_dep, use_cheby, sigma_min, growth):
 def _ionize_scan(
     delta, prev_z_reion, steps, *, shape, box_lens, hii_filter, mass_dep, use_cheby,
     track_mfp, mean_fcoll, f_limit, ion_eff, gamma_prefactor, sigma_min, growth, redshift,
-    xe_box=None, rec_box=None, filter_recomb=False, mini=None,
+    xe_box=None, rec_box=None, filter_recomb=False, mini=None, lagr=None,
+    paint_spheres=False,
 ):
     """Descending-R excursion-set loop.  `steps` holds the per-R scalars and
     tables ordered largest R first.  `xe_box` is the x-ray ionized fraction of
@@ -357,11 +365,21 @@ def _ionize_scan(
     tracked, the previous snapshot's density `prev_delta` and its stacks
     `prev_nion`, `prev_nion_mini`; the pre-mean-fix grids of every radius are
     then written into the (n_R, N^3) stacks returned as the fifth and sixth
-    values (None without minihalos)."""
+    values (None without minihalos).
+
+    `lagr` (Lagrangian sources, IonisationBox.c:615-621, 1054-1067) holds the
+    photon grid `stars` (n_ion / rho_b), the ionizing-SFR grid `wsfr`
+    (whalo_sfr / rho_b), the `source_filter` id that filters both (the
+    exponential-MFP tophat under USE_EXP_FILTER) and its `mfp`; the collapsed
+    fraction is then stars_R / (1 + delta_R), with no mean fix, and Gamma12
+    comes from the filtered SFR.  `paint_spheres` (IONISE_ENTIRE_SPHERE)
+    ionizes the whole R-sphere around each newly ionized cell."""
     kmag = grids.kmag_grid(shape, box_lens, delta.device)
     d_k = fft.rfft3(delta)
     xe_k = fft.rfft3(xe_box) if xe_box is not None else None
     rec_k = fft.rfft3(rec_box) if filter_recomb else None
+    if lagr is not None:
+        stars_k, wsfr_k = fft.rfft3(lagr["stars"]), fft.rfft3(lagr["wsfr"])
     n_r = len(steps)
     nion = nion_mini = None
     if mini is not None:
@@ -387,6 +405,14 @@ def _ionize_scan(
 
         delta_r = filtered(d_k, delta)
         xe_r = filtered(xe_k, xe_box) if xe_box is not None else None
+        if lagr is not None:
+            if is_last:
+                stars_r, sfr_r = lagr["stars"], lagr["wsfr"]
+            else:
+                # one source window serves both grids
+                win = filters.filter_weights(kmag, lagr["source_filter"], r, lagr["mfp"])
+                stars_r = fft.irfft3(stars_k * win, shape)
+                sfr_r = fft.irfft3(wsfr_k * win, shape)
         if mini is not None:
             mta_r = filtered(mta_k, mini["mturn_a"])
             mtm_r = filtered(mtm_k, mini["mturn_m"])
@@ -394,7 +420,12 @@ def _ionize_scan(
         delta_r = torch.clamp_min(delta_r, -1.0 + FRACT_FLOAT_ERR)
         xe_r = torch.clamp(xe_r, 0.0, 0.999) if xe_box is not None else 0.0
 
-        if mini is not None:
+        if lagr is not None:
+            # halo model: filtered ionizing-photon grid -> photons per baryon
+            # (no mean fix: the grids already realize the HMF)
+            fcoll = torch.clamp_min(stars_r, 0.0) / (1.0 + delta_r)
+            sfr_r = torch.clamp_min(sfr_r, 0.0)
+        elif mini is not None:
             fcoll, fcoll_mini = _fcoll_mini_at_radius(delta_r, mta_r, mtm_r, step, pd_r, mini)
             # pre-mean-fix grids, for the next snapshot's trapezoid
             nion[idx] = fcoll
@@ -404,11 +435,12 @@ def _ionize_scan(
                 delta_r, step, mass_dep=mass_dep, use_cheby=use_cheby,
                 sigma_min=sigma_min, growth=growth,
             )
-        # mean fix: normalize the grid mean to the global unconditional value
-        grid_mean = torch.clamp_min(fcoll.mean(), f_limit)
-        fcoll = fcoll * (mean_fcoll / grid_mean)
-        if mass_dep:
-            fcoll = torch.clamp_min(fcoll, f_limit)
+        if lagr is None:
+            # mean fix: normalize the grid mean to the global unconditional value
+            grid_mean = torch.clamp_min(fcoll.mean(), f_limit)
+            fcoll = fcoll * (mean_fcoll / grid_mean)
+            if mass_dep:
+                fcoll = torch.clamp_min(fcoll, f_limit)
         if mini is not None:
             grid_mean_mini = torch.clamp_min(fcoll_mini.mean(), mini["f_limit_mini"])
             fcoll_mini = torch.clamp_min(
@@ -427,6 +459,9 @@ def _ionize_scan(
         if mini is not None:
             photons = fcoll * ion_eff + fcoll_mini * mini["ion_eff_mini"]
             g_new = r * (gamma_prefactor * fcoll + mini["gamma_prefactor_mini"] * fcoll_mini)
+        elif lagr is not None:
+            photons = fcoll * ion_eff
+            g_new = float(_f32(r) * _f32(gamma_prefactor)) / (1.0 + delta_r) * sfr_r
         else:
             photons = fcoll * ion_eff
             g_new = r * (gamma_prefactor * fcoll)
@@ -435,7 +470,10 @@ def _ionize_scan(
         gamma = torch.where(newly, g_new, gamma)
         if track_mfp:
             mfp = torch.where(newly, r, mfp)
-        xh = torch.where(ionized, 0.0, xh)
+        if paint_spheres:
+            xh = _paint_spheres(xh, newly, kmag, r, shape, box_lens)
+        else:
+            xh = torch.where(ionized, 0.0, xh)
 
         if is_last:
             # partial ionization on the last step (IonisationBox.c:1161-1196)
@@ -448,6 +486,21 @@ def _ionize_scan(
     keep = torch.where(prev_z_reion >= 0, prev_z_reion, -1.0)
     z_reion = torch.where(xh < TINY, torch.where(prev_z_reion >= 0, prev_z_reion, redshift), keep)
     return xh, gamma, mfp, z_reion, nion, nion_mini
+
+
+def _paint_spheres(xh, newly, kmag, r, shape, box_lens):
+    """IONISE_ENTIRE_SPHERE (reference update_in_sphere,
+    bubble_helper_progs.c:341): zero the whole R-sphere around each newly
+    ionized cell.  The flag field is convolved with the normalized spherical
+    tophat; a cell within R of a flagged centre gets at least 1/N_sphere
+    (N_sphere the sphere's volume in cells), and the FFT sidelobes are ~1e-2
+    of that, so the threshold is half of it."""
+    painted = fft.irfft3(
+        filters.filter_kbox(fft.rfft3(newly.to(torch.float32)), kmag, filters.TOPHAT, r), shape)
+    # the JAX package's float32 scalars: (4 pi / 3) (R / cell)^3, at least 1
+    q = _f32(r) / _f32(box_lens[0] / shape[0])
+    n_sph = max(_f32(4.0 * np.pi / 3.0) * (q * (q * q)), _f32(1.0))
+    return torch.where(painted > float(_f32(0.5) / n_sph), 0.0, xh)
 
 
 def _ionized_temperature(xh, z_reion, density, tk_neutral, t_re, redshift):
@@ -507,14 +560,10 @@ def check_inputs(inputs: InputParameters) -> None:
     """Raise NotImplementedError for ionization options outside the port."""
     mo = inputs.matter_options
     ao = inputs.astro_options
-    if mo.SOURCE_MODEL == "L-INTEGRAL":
-        not_in_slice("SOURCE_MODEL='L-INTEGRAL'", 12)
     if mo.source_model_uses_halo_sampler:
         not_in_slice(f"SOURCE_MODEL={mo.SOURCE_MODEL!r}", 13)
     if ao.PHOTON_CONS_TYPE != "NO-PHOTONCONS":
         not_in_slice(f"PHOTON_CONS_TYPE={ao.PHOTON_CONS_TYPE!r}", 14)
-    if ao.IONISE_ENTIRE_SPHERE:
-        not_in_slice("IONISE_ENTIRE_SPHERE", 6)
 
 
 def compute_ionization_field(
@@ -526,6 +575,7 @@ def compute_ionization_field(
     prev_redshift: float | None = None,
     previous_perturbed_field: PerturbedField | None = None,
     vcb_box: torch.Tensor | None = None,
+    halobox: HaloBox | None = None,
     *,
     device="cuda",
 ) -> IonizedBox:
@@ -538,8 +588,10 @@ def compute_ionization_field(
     previous box's Gamma12, z_reion and Nion stacks, the TsBox's J_21_LW,
     `previous_perturbed_field` (for the Nion history) and `vcb_box` (the ICs'
     lowres |v_cb|; the scaling constants' mean speed when None) set the
-    turnover masses.  The fields are moved to `device` if they live
-    elsewhere."""
+    turnover masses.  With a Lagrangian source model (SOURCE_MODEL
+    'L-INTEGRAL') `halobox` brings the source grids: its n_ion and
+    whalo_sfr, filtered at each radius, replace the conditional Nion tables.
+    The fields are moved to `device` if they live elsewhere."""
     dev = resolve_device(device)
     check_inputs(inputs)
     so = inputs.simulation_options
@@ -559,7 +611,10 @@ def compute_ionization_field(
     ln_m_min, ln_m_max = np.log(m_min), np.log(hmf.M_MAX_INTEGRAL)
     hmf_int = hmf.HMF_NAMES[mo.HMF]
     mass_dep = mo.source_model_is_mass_dependent
-    ion_eff = sc.pop2_ion * sc.fstar_10 * sc.fesc_10 if mass_dep else ap.HII_EFF_FACTOR
+    lagrangian = mo.source_model_uses_lagrangian_grids and halobox is not None
+    ion_eff_gl = sc.pop2_ion * sc.fstar_10 * sc.fesc_10 if mass_dep else ap.HII_EFF_FACTOR
+    # the halo grids already carry fesc and the pop factors (set_ionbox_constants:172-178)
+    ion_eff = 1.0 if lagrangian else ion_eff_gl
 
     # --- global normalization (set_mean_fcoll, IonisationBox.c:468-529) -----
     if mass_dep:
@@ -590,7 +645,7 @@ def compute_ionization_field(
     )
 
     # --- early exit: nothing ionizes (IonisationBox.c:1472-1475) ------------
-    if mean_fcoll * ion_eff < HII_ROUND_ERR:
+    if mean_fcoll * ion_eff_gl < HII_ROUND_ERR:
         if spin_temp is not None:
             xh = 1.0 - spin_temp.xray_ionised_fraction.to(dev)
         else:
@@ -610,7 +665,7 @@ def compute_ionization_field(
         )
 
     # --- minihalo turnover-mass grids (calculate_mcrit_boxes:403) -----------
-    use_minihalos = ao.USE_MINI_HALOS and mass_dep
+    use_minihalos = ao.USE_MINI_HALOS and mass_dep and not lagrangian
     ion_eff_mini = sc.pop3_ion * sc.fstar_7 * sc.fesc_7
     mean_fcoll_mini = f_limit_mini = 0.0
     log10_mturn_m_ave = 0.0
@@ -640,7 +695,7 @@ def compute_ionization_field(
         if previous_ionized_box is not None:
             prev_mfc = float(previous_ionized_box.mean_f_coll)
             prev_mfc_mini = float(previous_ionized_box.mean_f_coll_MINI)
-        if prev_redshift is not None and prev_mfc * ion_eff > 1e-4:
+        if prev_redshift is not None and prev_mfc * ion_eff_gl > 1e-4:
             f_prev = float(hmf.nion_general(
                 sigma_table, cosmo, hmf_int, prev_redshift, ln_m_min, ln_m_max, mt_a, sc))
             mean_fcoll = prev_mfc + mean_fcoll - f_prev
@@ -655,7 +710,7 @@ def compute_ionization_field(
         and previous_perturbed_field is not None
         and prev_redshift is not None
         and previous_ionized_box.unnormalised_nion is not None
-        and (prev_mfc * ion_eff + prev_mfc_mini * ion_eff_mini) > 1e-4
+        and (prev_mfc * ion_eff_gl + prev_mfc_mini * ion_eff_mini) > 1e-4
     )
 
     ladder = setup_radii(inputs, m_min)
@@ -669,7 +724,7 @@ def compute_ionization_field(
     if use_minihalos:
         d_lo, d_hi, tables, caps, tables_mini, caps_mini = _build_nion_tables_mini(
             inputs, ladder, sigma_table, growth, m_min, sc, l10_mturns)
-    elif mass_dep:
+    elif mass_dep and not lagrangian:
         d_lo, d_hi, tables, caps = _build_nion_tables(
             inputs, ladder, sigma_table, growth, m_min, sc
         )
@@ -690,8 +745,10 @@ def compute_ionization_field(
         * ion_eff
         / 1.0e-12
     )
-    if mass_dep:
+    if mass_dep and not lagrangian:
         gamma_prefactor /= sc.t_h * sc.t_star
+    # Lagrangian: the 1/(rho_crit OMb) absorber factor is applied to the
+    # grids below, so gamma_prefactor stays as it is (IonisationBox.c:215-218)
 
     use_recomb = ao.uses_recombination
     rec_box = None
@@ -708,7 +765,8 @@ def compute_ionization_field(
         return torch.as_tensor(
             np.asarray(a[order], np.float32).reshape(n_r, -1), device=dev).unbind(0)
 
-    gather_rows = device_rows(tables) if mass_dep and not use_cheby else [None] * n_r
+    gather_rows = (
+        device_rows(tables) if mass_dep and not use_cheby and not lagrangian else [None] * n_r)
     mini = None
     if use_minihalos:
         mini_rows = device_rows(tables_mini)
@@ -718,7 +776,7 @@ def compute_ionization_field(
             f_limit_mini=float(_f32(f_limit_mini)),
             ion_eff_mini=float(_f32(ion_eff_mini)),
             gamma_prefactor_mini=float(_f32(
-                gamma_prefactor * (ion_eff_mini / max(ion_eff, 1e-30)))),
+                gamma_prefactor * (ion_eff_mini / max(ion_eff_gl, 1e-30)))),
         )
     if track_nion:
         # the previous snapshot's tables, for Nion(z_prev, Mt)
@@ -730,6 +788,17 @@ def compute_ionization_field(
             prev_delta=previous_perturbed_field.density.to(dev),
             prev_nion=previous_ionized_box.unnormalised_nion.to(dev),
             prev_nion_mini=previous_ionized_box.unnormalised_nion_mini.to(dev),
+        )
+
+    lagr = None
+    if lagrangian:
+        rho_b = float(_f32(cosmo.rho_mean * cosmo.OMb / cosmo.OMm))  # Msun/Mpc^3
+        lagr = dict(
+            stars=halobox.n_ion.to(dev) / rho_b,
+            wsfr=(halobox.whalo_sfr.to(dev) / rho_b if halobox.whalo_sfr is not None
+                  else torch.zeros(shape, dtype=torch.float32, device=dev)),
+            source_filter=filters.EXP_MFP if ao.USE_EXP_FILTER else ao.hii_filter_int,
+            mfp=float(_f32(25.483241248322766 / cosmo.hlittle)),  # Songaila+10 fit
         )
 
     # descending order (largest R first); every scalar rounded to float32
@@ -778,8 +847,10 @@ def compute_ionization_field(
         rec_box=rec_box,
         filter_recomb=use_recomb and not ao.CELL_RECOMB,
         mini=mini,
+        lagr=lagr,
+        paint_spheres=ao.IONISE_ENTIRE_SPHERE,
     )
-    del mini
+    del mini, lagr
 
     # --- cumulative recombination update (set_recombination_rates:1258-1342) ---
     cumulative_rec = None

@@ -2,7 +2,10 @@
 
 Equivalent of reference SpinTemperatureBox.c (ts_main:1387-1949), following
 py21cmfast_tpu/models/spintemp.py for the Eulerian density path
-(E-INTEGRAL and CONST-ION-EFF sources, with or without minihalos):
+(E-INTEGRAL and CONST-ION-EFF sources, with or without minihalos) and the
+Lagrangian one (L-INTEGRAL: the sources come pre-filtered per shell in an
+XraySourceBox, models/xray_source.py, and replace the density-conditioned
+SFRD of the shell loop):
 
  * Host (numpy float64, once per snapshot, `ts_host_tables`): the z'' shell
    ladder (setup_z_edges:312), Lyman-series spectral prefactors
@@ -368,7 +371,7 @@ def _trilerp(tbl, t, s, g, t_ax, s_ax, g_ax):
 def _ts_shell_scan(
     density_pf, prev_xe, shells, inv_growth_pf, fstar10, *,
     shape, box_lens, heat_filter, use_xray_heat, use_lya_heat, use_cheby, const_model,
-    mcrit_box=None, mcrit_clip=0.0, fstar7=0.0, lx_ratio=0.0,
+    mcrit_box=None, mcrit_clip=0.0, fstar7=0.0, lx_ratio=0.0, source=None,
 ):
     """The radiative accumulators summed over the shells.
 
@@ -381,11 +384,20 @@ def _ts_shell_scan(
     filtered per shell and clipped below at `mcrit_clip`, and each shell also
     holds table_mini (its flattened (N_MTURN_TABLE, N_DELTA_SFRD) SFRD table),
     mean_sfrd_mini, p_star_mini, p_cont_mini, p_inj_mini, p_lw and p_lw_mini.
+
+    `source` (Lagrangian sources) holds the XraySourceBox's already filtered
+    shell stacks: `sfr`, `xray`, and with minihalos `sfr_mini` (then each
+    shell also holds the Pop III and LW prefactors) and, under the Lya
+    multiple-scattering window, the straight-line `sfr_lw` and `sfr_mini_lw`;
+    the densities are then not read.
     Returns the accumulators named by `_accumulator_names`."""
+    lagrangian = source is not None
     use_minihalos = mcrit_box is not None
-    kmag = grids.kmag_grid(shape, box_lens, density_pf.device)
-    d_k = fft.rfft3(density_pf * inv_growth_pf)
-    mc_k = fft.rfft3(mcrit_box) if use_minihalos else None
+    use_mini_terms = use_minihalos or (lagrangian and source.get("sfr_mini") is not None)
+    if not lagrangian:
+        kmag = grids.kmag_grid(shape, box_lens, density_pf.device)
+        d_k = fft.rfft3(density_pf * inv_growth_pf)
+        mc_k = fft.rfft3(mcrit_box) if use_minihalos else None
 
     # per-cell x_e interpolation index into the 14-point deposition-fraction
     # axis: the count of nodes <= x_e, less one
@@ -400,75 +412,31 @@ def _ts_shell_scan(
         """A shell's 14-point frequency integrals at each cell's x_e."""
         return tbl[xidx] + ival * (tbl[xidx + 1] - tbl[xidx])
 
-    names = _accumulator_names(use_xray_heat, use_lya_heat, use_minihalos)
-    acc = {n: torch.zeros_like(density_pf) for n in names}
+    names = _accumulator_names(use_xray_heat, use_lya_heat, use_mini_terms)
+    acc = {n: torch.zeros_like(prev_xe) for n in names}
 
-    for sh in shells:
-        d_r = filters.filter_kbox(d_k, kmag, heat_filter, sh["R"]) if sh["do_filter"] else d_k
-        delta0 = fft.irfft3(d_r, shape)
-        if use_minihalos:
-            # the filtered log10-Mcrit shell (reference fill_Rbox_table of
-            # log10_Mcrit_LW, SpinTemperatureBox.c:1464-1473), clipped below at
-            # the no-feedback LW threshold
-            mc_r = mc_k if not sh["do_filter"] else filters.filter_kbox(
-                mc_k, kmag, heat_filter, sh["R"])
-            mc_r = torch.clamp_min(fft.irfft3(mc_r, shape), mcrit_clip)
-        # aliasing clip at delta = -1 in PERTURBED-FIELD-redshift units, i.e.
-        # BEFORE the 1/D(z_pf) extrapolation factor (fill_Rbox_table:619-625).
-        # delta0 is z=0-normalized, so the floor is -1/D(z_pf).
-        delta0 = torch.clamp_min(delta0, -inv_growth_pf)
-        delta_zpp = delta0 * sh["growth"]
-        span = float(_f32(sh["d_hi"]) - _f32(sh["d_lo"]))
-
-        # conditional SFRD: log-Chebyshev Clenshaw when the host fit passed,
-        # table gather otherwise (see models/ionization)
-        if use_cheby:
-            xch = torch.clamp((delta_zpp - sh["d_lo"]) / span * 2.0 - 1.0, -1.0, 1.0)
-            flog = _clenshaw(sh["cheb"], torch.clamp_max(xch, CHEBY_X_SAFE), CHEBY_DEG)
-            blend = torch.clamp((xch - CHEBY_X_SAFE) / (1.0 - CHEBY_X_SAFE), 0.0, 1.0)
-            fcoll = torch.exp(flog * (1.0 - blend) + sh["cheb_edge"] * blend)
+    for i, sh in enumerate(shells):
+        if lagrangian:
+            # halo-model shells are already filtered (XraySourceBox); units
+            # folded on the host: sfr_term dimensionless, xray_sfr in table
+            # units.  MCG X-rays are inside halo_xray, so only the Lya/LW SFR
+            # splits out; the LW photons travel in straight lines and have
+            # shells of their own under the multiple-scattering window
+            # (SpinTemperatureBox.c:1676-1683, 1698-1706)
+            sfr_term = source["sfr"][i] * sh["zfac"]
+            xray_sfr = source["xray"][i] * float(_f32(sh["zfac"]) * _f32(sh["xr_fac"]))
+            sfr_term_mini = source["sfr_mini"][i] * sh["zfac"] if use_mini_terms else None
+            if source.get("sfr_lw") is not None:
+                sfr_term_lw = source["sfr_lw"][i] * sh["zfac"]
+                sfr_term_mini_lw = source["sfr_mini_lw"][i] * sh["zfac"]
+            else:
+                sfr_term_lw, sfr_term_mini_lw = sfr_term, sfr_term_mini
         else:
-            t = (delta_zpp - sh["d_lo"]) / span * (N_DELTA_SFRD - 1)
-            t = torch.clamp(t, 0.0, N_DELTA_SFRD - 1.001)
-            i0 = t.to(torch.int64)  # t >= 0 after the clamp: truncation is a floor
-            frac = t - i0
-            table = sh["table"]
-            fcoll = table[i0] * (1 - frac) + table[i0 + 1] * frac
-        fcoll = torch.where(delta_zpp >= sh["d_hi"], sh["cap"], fcoll)
-        fcoll = torch.clamp_min(fcoll, 1e-35)
-
-        if const_model:
-            # `table` holds -dfcoll/dz (the SFRD proxy); the mean fix uses the
-            # plain fcoll grid (calculate_sfrd_from_grid:1061-1073)
-            table_fc = sh["table_fc"]
-            fc = table_fc[i0] * (1 - frac) + table_fc[i0 + 1] * frac
-            fc = torch.where(delta_zpp >= sh["d_hi"], 1.0, fc)
-            ave_fcoll = torch.clamp_min(fc.mean(), 1e-35)
-        else:
-            ave_fcoll = torch.clamp_min(fcoll.mean(), 1e-35)
-        # form the O(1) grid/mean ratio BEFORE scaling by the global
-        # expectation: mean_sfrd/ave_fcoll overflows float32 when the shell's
-        # conditional SFRD is ~0 everywhere
-        scale = float(_f32(sh["zfac"]) * _f32(sh["mean_sfrd"]) * _f32(fstar10))
-        sfr_term = (1.0 + delta_zpp) * (fcoll / ave_fcoll) * scale
-        # L_X * s/yr and the unit conversions are folded into the tables (host)
-        if use_minihalos:
-            if use_cheby:
-                t = (delta_zpp - sh["d_lo"]) / span * (N_DELTA_SFRD - 1)
-                t = torch.clamp(t, 0.0, N_DELTA_SFRD - 1.001)
-                i0 = t.to(torch.int64)  # t >= 0 after the clamp: truncation is a floor
-                frac = t - i0
-            # bilinear (log10 Mcrit, delta) gather from the shell's 2D MCG SFRD
-            # table (reference calculate_sfrd_from_grid:1010-1060), with its
-            # own mean fix
-            fcoll_mini = _gather2d(sh["table_mini"], N_DELTA_SFRD, mc_r, i0, frac)
-            fcoll_mini = torch.clamp_min(fcoll_mini, 1e-35)
-            ave_mini = torch.clamp_min(fcoll_mini.mean(), 1e-35)
-            scale_mini = float(_f32(sh["zfac"]) * _f32(sh["mean_sfrd_mini"]) * _f32(fstar7))
-            sfr_term_mini = (1.0 + delta_zpp) * (fcoll_mini / ave_mini) * scale_mini
-            xray_sfr = (sfr_term + sfr_term_mini * lx_ratio) * sh["xr_fac"]
-        else:
-            xray_sfr = sfr_term * sh["xr_fac"]
+            sfr_term, sfr_term_mini, xray_sfr = _eulerian_shell_terms(
+                sh, d_k, mc_k, kmag, inv_growth_pf, fstar10, fstar7, lx_ratio, shape=shape,
+                heat_filter=heat_filter, use_cheby=use_cheby, const_model=const_model,
+                mcrit_clip=mcrit_clip)
+            sfr_term_lw, sfr_term_mini_lw = sfr_term, sfr_term_mini
 
         if use_xray_heat:
             acc["dxheat"] += xray_sfr * freq(sh["tbl_heat"])
@@ -480,14 +448,89 @@ def _ts_shell_scan(
             # (reference SpinTemperatureBox.c:1730-1737)
             acc["dlya_cont"] += sfr_term * sh["p_cont"]
             acc["dlya_inj"] += sfr_term * sh["p_inj"]
-            if use_minihalos:
+            if use_mini_terms:
                 acc["dlya_cont"] += sfr_term_mini * sh["p_cont_mini"]
                 acc["dlya_inj"] += sfr_term_mini * sh["p_inj_mini"]
-        if use_minihalos:
+        if use_mini_terms:
             acc["dstarlya"] += sfr_term_mini * sh["p_star_mini"]
-            acc["dstarlw"] += sfr_term * sh["p_lw"]
-            acc["dstarlw"] += sfr_term_mini * sh["p_lw_mini"]
+            acc["dstarlw"] += sfr_term_lw * sh["p_lw"]
+            acc["dstarlw"] += sfr_term_mini_lw * sh["p_lw_mini"]
     return tuple(acc[n] for n in names)
+
+
+def _eulerian_shell_terms(sh, d_k, mc_k, kmag, inv_growth_pf, fstar10, fstar7, lx_ratio, *,
+                          shape, heat_filter, use_cheby, const_model, mcrit_clip):
+    """One shell's SFR terms (ACG, MCG or None) and X-ray source term from
+    the filtered density (and with minihalos the filtered log10-Mcrit box):
+    the conditional SFRD gathers, mean-fixed to the shell's global SFRD."""
+    use_minihalos = mc_k is not None
+    d_r = filters.filter_kbox(d_k, kmag, heat_filter, sh["R"]) if sh["do_filter"] else d_k
+    delta0 = fft.irfft3(d_r, shape)
+    if use_minihalos:
+        # the filtered log10-Mcrit shell (reference fill_Rbox_table of
+        # log10_Mcrit_LW, SpinTemperatureBox.c:1464-1473), clipped below at
+        # the no-feedback LW threshold
+        mc_r = mc_k if not sh["do_filter"] else filters.filter_kbox(
+            mc_k, kmag, heat_filter, sh["R"])
+        mc_r = torch.clamp_min(fft.irfft3(mc_r, shape), mcrit_clip)
+    # aliasing clip at delta = -1 in PERTURBED-FIELD-redshift units, i.e.
+    # BEFORE the 1/D(z_pf) extrapolation factor (fill_Rbox_table:619-625).
+    # delta0 is z=0-normalized, so the floor is -1/D(z_pf).
+    delta0 = torch.clamp_min(delta0, -inv_growth_pf)
+    delta_zpp = delta0 * sh["growth"]
+    span = float(_f32(sh["d_hi"]) - _f32(sh["d_lo"]))
+
+    # conditional SFRD: log-Chebyshev Clenshaw when the host fit passed,
+    # table gather otherwise (see models/ionization)
+    if use_cheby:
+        xch = torch.clamp((delta_zpp - sh["d_lo"]) / span * 2.0 - 1.0, -1.0, 1.0)
+        flog = _clenshaw(sh["cheb"], torch.clamp_max(xch, CHEBY_X_SAFE), CHEBY_DEG)
+        blend = torch.clamp((xch - CHEBY_X_SAFE) / (1.0 - CHEBY_X_SAFE), 0.0, 1.0)
+        fcoll = torch.exp(flog * (1.0 - blend) + sh["cheb_edge"] * blend)
+    else:
+        t = (delta_zpp - sh["d_lo"]) / span * (N_DELTA_SFRD - 1)
+        t = torch.clamp(t, 0.0, N_DELTA_SFRD - 1.001)
+        i0 = t.to(torch.int64)  # t >= 0 after the clamp: truncation is a floor
+        frac = t - i0
+        table = sh["table"]
+        fcoll = table[i0] * (1 - frac) + table[i0 + 1] * frac
+    fcoll = torch.where(delta_zpp >= sh["d_hi"], sh["cap"], fcoll)
+    fcoll = torch.clamp_min(fcoll, 1e-35)
+
+    if const_model:
+        # `table` holds -dfcoll/dz (the SFRD proxy); the mean fix uses the
+        # plain fcoll grid (calculate_sfrd_from_grid:1061-1073)
+        table_fc = sh["table_fc"]
+        fc = table_fc[i0] * (1 - frac) + table_fc[i0 + 1] * frac
+        fc = torch.where(delta_zpp >= sh["d_hi"], 1.0, fc)
+        ave_fcoll = torch.clamp_min(fc.mean(), 1e-35)
+    else:
+        ave_fcoll = torch.clamp_min(fcoll.mean(), 1e-35)
+    # form the O(1) grid/mean ratio BEFORE scaling by the global
+    # expectation: mean_sfrd/ave_fcoll overflows float32 when the shell's
+    # conditional SFRD is ~0 everywhere
+    scale = float(_f32(sh["zfac"]) * _f32(sh["mean_sfrd"]) * _f32(fstar10))
+    sfr_term = (1.0 + delta_zpp) * (fcoll / ave_fcoll) * scale
+    # L_X * s/yr and the unit conversions are folded into the tables (host)
+    if use_minihalos:
+        if use_cheby:
+            t = (delta_zpp - sh["d_lo"]) / span * (N_DELTA_SFRD - 1)
+            t = torch.clamp(t, 0.0, N_DELTA_SFRD - 1.001)
+            i0 = t.to(torch.int64)  # t >= 0 after the clamp: truncation is a floor
+            frac = t - i0
+        # bilinear (log10 Mcrit, delta) gather from the shell's 2D MCG SFRD
+        # table (reference calculate_sfrd_from_grid:1010-1060), with its
+        # own mean fix
+        fcoll_mini = _gather2d(sh["table_mini"], N_DELTA_SFRD, mc_r, i0, frac)
+        fcoll_mini = torch.clamp_min(fcoll_mini, 1e-35)
+        ave_mini = torch.clamp_min(fcoll_mini.mean(), 1e-35)
+        scale_mini = float(_f32(sh["zfac"]) * _f32(sh["mean_sfrd_mini"]) * _f32(fstar7))
+        sfr_term_mini = (1.0 + delta_zpp) * (fcoll_mini / ave_mini) * scale_mini
+        xray_sfr = (sfr_term + sfr_term_mini * lx_ratio) * sh["xr_fac"]
+    else:
+        sfr_term_mini = None
+        xray_sfr = sfr_term * sh["xr_fac"]
+    return sfr_term, sfr_term_mini, xray_sfr
 
 
 def _small_interp(x, xs, ys):
@@ -717,8 +760,6 @@ def _init_first_ts(redshift, inputs, perturbed_field, device="cuda"):
 def check_inputs(inputs: InputParameters) -> None:
     """Raise NotImplementedError for spin-temperature options outside the port."""
     mo = inputs.matter_options
-    if mo.SOURCE_MODEL == "L-INTEGRAL":
-        not_in_slice("SOURCE_MODEL='L-INTEGRAL'", 12)
     if mo.source_model_uses_halo_sampler:
         not_in_slice(f"SOURCE_MODEL={mo.SOURCE_MODEL!r}", 13)
 
@@ -742,7 +783,8 @@ def _norm_group(*arrs):
     return tuple(np.asarray(a, np.float64) / peak for a in arrs) + (peak,)
 
 
-def ts_host_tables(redshift, inputs, pf_redshift, prev_redshift, x_e_ave, ave_mcrit=0.0):
+def ts_host_tables(redshift, inputs, pf_redshift, prev_redshift, x_e_ave, ave_mcrit=0.0,
+                   lagrangian=False, lagr_mcrit=None, lagr_mini=False):
     """Everything the device side of one Ts step needs from the host, float64.
 
     `x_e_ave` is the mean x_e of the previous state (it sets the tau_X = 1
@@ -758,7 +800,15 @@ def ts_host_tables(redshift, inputs, pf_redshift, prev_redshift, x_e_ave, ave_mc
     `mcrit_clip`, `sfrd_tables_mini`, `mean_sfrd_mini`, the Pop III and LW
     prefactors (`starlya_mini_pref`, `lya_cont_mini_pref`,
     `lya_inj_mini_pref`, `lw_pref`, `lw_mini_pref`), `fstar7` and
-    `lx_ratio`."""
+    `lx_ratio`.
+
+    `lagrangian` (sources from an XraySourceBox): no SFRD tables, the shell
+    factor |dz'' dt/dz| and the emissivity units of the halo grids folded
+    into the tables (set_zp_consts:1171-1175); `lagr_mcrit` is the box's
+    per-shell mean log10 MCG turnover (each shell's MCG tau_X curve is keyed
+    on it) and `lagr_mini` says that the box carries minihalo shells, whose
+    Pop III and LW prefactors are then returned as with minihalos.  The flag
+    `mini_terms` says whether the minihalo accumulators are used."""
     so = inputs.simulation_options
     ao = inputs.astro_options
     ap = inputs.astro_params
@@ -767,7 +817,7 @@ def ts_host_tables(redshift, inputs, pf_redshift, prev_redshift, x_e_ave, ave_mc
     # CONST-ION-EFF: SFRD from the fcoll redshift derivative, not the
     # scaling-relation Nion integrals (reference calculate_sfrd_from_grid:
     # 1061-1067, global_reion_properties:927-943)
-    const_model = inputs.matter_options.SOURCE_MODEL == "CONST-ION-EFF"
+    const_model = not lagrangian and inputs.matter_options.SOURCE_MODEL == "CONST-ION-EFF"
 
     ladder = setup_z_edges(redshift, inputs)
     n_r = len(ladder.R)
@@ -806,6 +856,17 @@ def ts_host_tables(redshift, inputs, pf_redshift, prev_redshift, x_e_ave, ave_mc
             ]
         )
         ion_eff = float(ap.HII_EFF_FACTOR)
+    elif lagrangian:
+        # the halo grids carry the SFR: only the global Nion(z) of tau_X
+        nion_vals = np.array(
+            [
+                hmf.nion_general(sigma_table, cosmo, hmf_int, z, ln_mmin_zp, ln_mmax,
+                                 sc_zp.mturn_a_nofb, sc_zp)
+                for z in z_grid
+            ]
+        )
+        mean_sfrd = np.zeros(n_r)
+        ion_eff = sc_zp.pop2_ion * sc_zp.fstar_10 * sc_zp.fesc_10
     else:
         nion_vals = np.array(
             [
@@ -831,28 +892,38 @@ def ts_host_tables(redshift, inputs, pf_redshift, prev_redshift, x_e_ave, ave_mc
 
     # MCG contribution to the tau_X filling factor (nu_tau_one_MINI,
     # heating_helper_progs.c:901-941 + fill_freqint_tables:838): per shell,
-    # the global MCG Nion(z) at the box's mean LW turnover mass (the shell
-    # filter keeps the mean), its log10 rounded to 3 decimals as the key of
-    # one curve
-    use_minihalos = bool(ao.USE_MINI_HALOS)
+    # the global MCG Nion(z) at that shell's mean LW turnover mass, its log10
+    # rounded to 3 decimals as the key of one curve.  Eulerian: the box's mean
+    # for every shell (the shell filter keeps the mean); Lagrangian: the
+    # source box's per-shell means, and no MCG term without them (ts_main:1481)
+    use_minihalos = bool(ao.USE_MINI_HALOS) and not lagrangian
+    mini_terms = use_minihalos or (lagrangian and lagr_mini)
     mcrit_clip = 0.0
     nion_mini_shells = [None] * n_r
     ion_eff_mini = 0.0
     if use_minihalos:
         mcrit_clip = float(np.log10(hmf.lyman_werner_threshold(redshift, 0.0, 0.0, ap)))
-    if use_minihalos and not const_model:
+    if ao.USE_MINI_HALOS and not const_model and (not lagrangian or lagr_mcrit is not None):
         ion_eff_mini = sc_zp.pop3_ion * sc_zp.fstar_7 * sc_zp.fesc_7
-        key = round(float(max(ave_mcrit, mcrit_clip)), 3)
+        if lagrangian:
+            shell_mcrit = np.asarray(lagr_mcrit, np.float64)
+        else:
+            shell_mcrit = np.full(n_r, max(ave_mcrit, mcrit_clip))
         zg_mini = np.linspace(redshift * 0.999, ladder.zpp[-1] * 1.001, 48)
-        vals = np.array([
-            hmf.nion_general_mini(
-                sigma_table, cosmo, hmf_int, z,
-                float(np.log(hmf.minimum_source_mass(z, inputs, xray=True))),
-                ln_mmax, 10.0 ** key, sc_zp,
-            )
-            for z in zg_mini
-        ])
-        nion_mini_shells = [lambda zz: np.interp(zz, zg_mini, vals)] * n_r
+        curves = {}
+        for i in range(n_r):
+            key = round(float(shell_mcrit[i]), 3)
+            if key not in curves:
+                vals = np.array([
+                    hmf.nion_general_mini(
+                        sigma_table, cosmo, hmf_int, z,
+                        float(np.log(hmf.minimum_source_mass(z, inputs, xray=True))),
+                        ln_mmax, 10.0 ** key, sc_zp,
+                    )
+                    for z in zg_mini
+                ])
+                curves[key] = lambda zz, v=vals: np.interp(zz, zg_mini, v)
+            nion_mini_shells[i] = curves[key]
 
     # tau_X = 1 horizons and frequency-integral tables.  Single-cell (0-D
     # global evolution) runs zero the collapsed fractions in the tau_X
@@ -885,7 +956,13 @@ def ts_host_tables(redshift, inputs, pf_redshift, prev_redshift, x_e_ave, ave_mc
     sfrd_cheby = np.zeros((n_r, CHEBY_DEG + 1))
     sfrd_edge = np.zeros(n_r)
     sfrd_tables_fc = np.zeros((n_r, 2))
-    if const_model:
+    if lagrangian:
+        d_lo, d_hi = np.zeros(n_r), np.ones(n_r)
+        sfrd_tables = np.zeros((n_r, N_DELTA_SFRD))
+        sfrd_caps = np.zeros(n_r)
+        # Lagrangian shells carry SFR density directly (ts_main:1570-1572)
+        z_edge_factor = np.abs(ladder.dzpp * ladder.dtdz)
+    elif const_model:
         # CONST-ION-EFF: per-shell closed-form EPS tables of fcoll (for the
         # mean fix) and -dfcoll/dz (the SFRD; calculate_sfrd_from_grid:
         # 1061-1067); z_edge_factor is just the shell dz (ts_main:1566-1567)
@@ -1009,12 +1086,24 @@ def ts_host_tables(redshift, inputs, pf_redshift, prev_redshift, x_e_ave, ave_mc
     # the consumer's 1/k_B (7.2e15) here keeps the float32 heat table
     # comfortably normal, and the device-side Tk update no longer divides by
     # k_B.
-    xray_norm = xray_prefactor * volunit_inv
-    lya_norm = lya_star_prefactor * volunit_inv
-    lx_lin = ap.l_x * physconst.s_per_yr  # L_X * s/yr
-    tbl_heat = tbl_heat * (xray_norm * lx_lin / physconst.k_B)
-    tbl_ion = tbl_ion * (xray_norm * lx_lin)
-    tbl_lya = tbl_lya * (xray_norm * lx_lin * nb_zp)  # (1+delta) applied on device
+    if lagrangian:
+        # halo grids are Msun/s/Mpc^3 (SFR) and 1e38 erg/s/Mpc^3 (X-ray);
+        # the emissivity-to-per-baryon conversion is 1/cm_per_Mpc^3
+        # (set_zp_consts:1171-1175).  The heat table lands near 1e-43 before
+        # `_norm_group` scales it to peak 1.
+        volunit_inv = physconst.cm_per_Mpc**-3
+        xray_norm = xray_prefactor * volunit_inv * 1e38
+        lya_norm = lya_star_prefactor * volunit_inv
+        tbl_heat = tbl_heat * (xray_norm / physconst.k_B)
+        tbl_ion = tbl_ion * xray_norm
+        tbl_lya = tbl_lya * (xray_norm * nb_zp)
+    else:
+        xray_norm = xray_prefactor * volunit_inv
+        lya_norm = lya_star_prefactor * volunit_inv
+        lx_lin = ap.l_x * physconst.s_per_yr  # L_X * s/yr
+        tbl_heat = tbl_heat * (xray_norm * lx_lin / physconst.k_B)
+        tbl_ion = tbl_ion * (xray_norm * lx_lin)
+        tbl_lya = tbl_lya * (xray_norm * lx_lin * nb_zp)  # (1+delta) applied on device
     starlya_pref = starlya_pref * lya_norm
     lya_cont_mini_pref = spec["cont_mini"]
     lya_inj_mini_pref = spec["inj_mini"]
@@ -1099,7 +1188,7 @@ def ts_host_tables(redshift, inputs, pf_redshift, prev_redshift, x_e_ave, ave_mc
         lya_tbl_cont=lya_tbl_cont, lya_tbl_inj=lya_tbl_inj,
         use_cheby=use_cheby, const_model=const_model, use_lya_heat=use_lya_heat,
         fstar10=sc_zp.fstar_10, consts=consts, kappa_knots=kappa_knots,
-        use_minihalos=use_minihalos, mcrit_clip=mcrit_clip,
+        use_minihalos=use_minihalos, mini_terms=mini_terms, mcrit_clip=mcrit_clip,
         sfrd_tables_mini=sfrd_tables_mini, mean_sfrd_mini=mean_sfrd_mini,
         starlya_mini_pref=starlya_mini_f, lya_cont_mini_pref=lya_cont_mini_pref,
         lya_inj_mini_pref=lya_inj_mini_pref, lw_pref=lw_f, lw_mini_pref=lw_mini_f,
@@ -1144,6 +1233,9 @@ def shells_from_tables(h, device):
             shells[-1].update(
                 table_mini=t(h["sfrd_tables_mini"][i].reshape(-1)),
                 mean_sfrd_mini=f(h["mean_sfrd_mini"][i]),
+            )
+        if h["mini_terms"]:
+            shells[-1].update(
                 p_star_mini=f(h["starlya_mini_pref"][i]),
                 p_cont_mini=f(h["lya_cont_mini_pref"][i]),
                 p_inj_mini=f(h["lya_inj_mini_pref"][i]),
@@ -1170,12 +1262,12 @@ def compute_spin_temperature(
 
     Returns (ts_box, state); `state` is passed back as `prev_state`.  With
     minihalos `initial_conditions` gives the |v_cb| box (FLUCTS) and
-    `previous_ionized_box` the reionization feedback.  The fields are moved
-    to `device` if they live elsewhere."""
+    `previous_ionized_box` the reionization feedback.  `source_box` (an
+    XraySourceBox, SOURCE_MODEL 'L-INTEGRAL') brings the Lagrangian sources:
+    its filtered shells replace the density-conditioned SFRD.  The fields are
+    moved to `device` if they live elsewhere."""
     dev = resolve_device(device)
     check_inputs(inputs)
-    if source_box is not None:
-        not_in_slice("an XraySourceBox (Lagrangian Ts sources)", 12)
     if mesh is not None:
         not_in_slice("a device mesh", 17)
     so = inputs.simulation_options
@@ -1192,11 +1284,24 @@ def compute_spin_temperature(
     prev_xe = prev_state.xray_ionised_fraction.to(dev)
     density = perturbed_field.density.to(dev)
 
+    lagrangian = source_box is not None
+    source = lagr_mcrit = None
+    if lagrangian:
+        source = dict(sfr=source_box.filtered_sfr.to(dev), xray=source_box.filtered_xray.to(dev))
+        if ao.USE_MINI_HALOS and source_box.filtered_sfr_mini is not None:
+            source["sfr_mini"] = source_box.filtered_sfr_mini.to(dev)
+            if source_box.filtered_sfr_lw is not None:
+                # straight-line LW shells (multiple scattering + minihalos)
+                source["sfr_lw"] = source_box.filtered_sfr_lw.to(dev)
+                source["sfr_mini_lw"] = source_box.filtered_sfr_mini_lw.to(dev)
+        if source_box.mean_log10_Mcrit_LW is not None:
+            lagr_mcrit = source_box.mean_log10_Mcrit_LW.double().cpu().numpy()
+
     # minihalos: the per-cell log10 MCG turnover mass under LW, streaming and
     # reionization feedback, from the previous J_21_LW, the ICs' |v_cb| and
     # the previous IonizedBox's Gamma12 and z_reion
     mcrit_box = None
-    if ao.USE_MINI_HALOS:
+    if ao.USE_MINI_HALOS and not lagrangian:
         _, mcrit_box = mcrit_boxes(
             redshift, inputs, hmf.set_scaling_constants(redshift, inputs),
             previous_ionized_box, prev_state, getattr(initial_conditions, "lowres_vcb", None),
@@ -1211,7 +1316,9 @@ def compute_spin_temperature(
     means = torch.stack(means).tolist()
     x_e_ave, ave_mcrit = means[0], (means[1] if mcrit_box is not None else 0.0)
     h = ts_host_tables(
-        redshift, inputs, float(perturbed_field.redshift), prev_redshift, x_e_ave, ave_mcrit
+        redshift, inputs, float(perturbed_field.redshift), prev_redshift, x_e_ave, ave_mcrit,
+        lagrangian=lagrangian, lagr_mcrit=lagr_mcrit,
+        lagr_mini=source is not None and "sfr_mini" in source,
     )
     consts = {k: float(_f32(v)) for k, v in h["consts"].items()}
 
@@ -1227,14 +1334,14 @@ def compute_spin_temperature(
         density, prev_xe, shells_from_tables(h, dev),
         consts["inv_growth_pf"], float(_f32(h["fstar10"])),
         shape=so.lowres_shape, box_lens=so.box_lens, heat_filter=ao.heat_filter_int,
-        use_cheby=h["use_cheby"], const_model=h["const_model"], **flags, **mini,
+        use_cheby=h["use_cheby"], const_model=h["const_model"], source=source, **flags, **mini,
     )
-    del mcrit_box, mini
+    del mcrit_box, mini, source
     ts, tk, x_e, j_lya, j_lw = _ts_cell_update(
         density, prev_ts, prev_tk, prev_xe, accs,
         tensor(h["lya_tbl_cont"]), tensor(h["lya_tbl_inj"]), consts,
         tuple(tensor(a) for a in h["kappa_knots"]),
-        use_cmb_heat=bool(ao.USE_CMB_HEATING), use_minihalos=h["use_minihalos"], **flags,
+        use_cmb_heat=bool(ao.USE_CMB_HEATING), use_minihalos=h["mini_terms"], **flags,
     )
 
     box = TsBox(

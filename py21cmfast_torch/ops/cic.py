@@ -26,18 +26,25 @@ def cic_scatter_flat(acc_flat, px, py, pz, weights, out_shape):
 
     Positions are in *output-grid cell units* (cell centres at integer coords,
     matching reference map_mass.c:28 'cell at idx==0 centred at (0,0,0)'),
-    periodic wrapping applied.  Returns `acc_flat`.
+    periodic wrapping applied.  `acc_flat` is one flattened grid, with
+    `weights` of the positions' shape, or a (P, n_cells) stack of P grids
+    with `weights` of shape (P,) + the positions' shape: P properties at the
+    same positions, one `index_add_` a corner.  Returns `acc_flat`.
     """
     nx, ny, nz = out_shape
     (ix0, ix1, fx), (iy0, iy1, fy), (iz0, iz1, fz) = _corners(
         px, py, pz, out_shape, acc_flat.dtype
     )
+    dim = acc_flat.dim() - 1
     w = weights.to(acc_flat.dtype)
+    w = w.reshape(w.shape[:dim] + (-1,))
     for xi, wx in ((ix0, 1.0 - fx), (ix1, fx)):
         for yi, wy in ((iy0, 1.0 - fy), (iy1, fy)):
             base = (xi * ny + yi) * nz
             for zi, wz in ((iz0, 1.0 - fz), (iz1, fz)):
-                acc_flat.index_add_(0, (base + zi).reshape(-1), (w * wx * wy * wz).reshape(-1))
+                acc_flat.index_add_(
+                    dim, (base + zi).reshape(-1),
+                    w * wx.reshape(-1) * wy.reshape(-1) * wz.reshape(-1))
     return acc_flat
 
 

@@ -28,8 +28,14 @@ def ksq_grid(shape, box_lens, device):
 
 
 def kmag_grid(shape, box_lens, device):
-    """|k| on the rfftn half-space, shape (Nx, Ny, Nz//2+1)."""
-    return torch.sqrt(ksq_grid(shape, box_lens, device))
+    """|k| on the rfftn half-space, shape (Nx, Ny, Nz//2+1), correctly rounded
+    to float32 as the JAX package's |k| is.  torch's CPU float32 sqrt is not
+    (it is an ulp off on some cells), so on the CPU the root is taken in
+    float64 and rounded; the card's float32 sqrt is exact."""
+    ksq = ksq_grid(shape, box_lens, device)
+    if ksq.device.type == "cpu":
+        return torch.sqrt(ksq.double()).float()
+    return torch.sqrt(ksq)
 
 
 def resample_indices(n_out: int, n_in: int):

@@ -104,3 +104,38 @@ class BrightnessTemp(_Struct):
     @property
     def global_Tb(self):
         return float(self.brightness_temp.double().mean())
+
+
+@dataclass(frozen=True)
+class HaloBox(_Struct):
+    """Gridded source properties (HaloBox.c:563): comoving densities in
+    Msun/Mpc^3 (stars), Msun/s/Mpc^3 (SFR) and 1e38 erg/s/Mpc^3 (X-rays)."""
+
+    redshift: np.float32
+    n_ion: torch.Tensor
+    halo_sfr: torch.Tensor
+    whalo_sfr: torch.Tensor | None = None
+    halo_xray: torch.Tensor | None = None
+    halo_stars: torch.Tensor | None = None
+    halo_sfr_mini: torch.Tensor | None = None
+    halo_stars_mini: torch.Tensor | None = None
+    count: torch.Tensor | None = None
+    log10_Mcrit_ACG_ave: np.float32 | None = None
+    log10_Mcrit_MCG_ave: np.float32 | None = None
+
+
+@dataclass(frozen=True)
+class XraySourceBox(_Struct):
+    """Pre-filtered SFR/X-ray shells for Ts (SpinTemperatureBox.c:748), each
+    stack (N_STEP_TS, HII_DIM, HII_DIM, HII_D_PARA)."""
+
+    redshift: np.float32
+    filtered_sfr: torch.Tensor
+    filtered_sfr_mini: torch.Tensor | None = None
+    filtered_xray: torch.Tensor | None = None
+    mean_log10_Mcrit_LW: torch.Tensor | None = None
+    # LYA_MULTIPLE_SCATTERING + minihalos: the LW photons travel in straight
+    # lines, so the SFR grids are filtered a second time with the plain
+    # annulus (SpinTemperatureBox.c:775-783)
+    filtered_sfr_lw: torch.Tensor | None = None
+    filtered_sfr_mini_lw: torch.Tensor | None = None

@@ -8,6 +8,7 @@ as tests/test_components.py::test_factored_deposit_matches_scatter states it
 (float32 sums of up to 8 R^3 terms in another order).
 """
 
+import _torch_threads  # noqa: F401
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -7,6 +7,7 @@ through `initial_density=`.  Tolerance: max-abs <= 1e-5 max|field| (float32
 FFTs and the float32 tophat taken by two libraries).
 """
 
+import _torch_threads  # noqa: F401
 import numpy as np
 import pytest
 import torch

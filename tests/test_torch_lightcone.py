@@ -21,6 +21,7 @@ across by py21cmfast_torch.interop (one JAX chain in this file).  Tolerances:
       means of the JAX-written file.
 """
 
+import _torch_threads  # noqa: F401
 import subprocess
 import sys
 from pathlib import Path

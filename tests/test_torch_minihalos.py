@@ -52,6 +52,7 @@ without a flipped key; a flipped key moves the MCG tau_X horizons by 0.23%
 in Mturn.
 """
 
+import _torch_threads  # noqa: F401
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -5,6 +5,7 @@ to the largest magnitude of the JAX result (float32 rounding of transforms
 and transcendentals taken in another order).
 """
 
+import _torch_threads  # noqa: F401
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -75,10 +76,22 @@ def test_filter_kbox_matches_jax(ftype):
 
 
 def test_unported_filters_raise():
+    """filter_weights serves the ids 0-4, as the JAX package's does: the
+    multiple-scattering window (5) is a host table gathered on its own path
+    and other ids are unknown; both raise ValueError in both packages.  The
+    exp-MFP (3) and shell (4) windows, which raised until the fixed-grid
+    source slice, evaluate to finite windows with W(0) at its Taylor value
+    (tests/test_torch_fixed_halos.py holds them to the JAX package)."""
     kmag = tgrids.kmag_grid(SHAPE, BOX, "cpu")
-    for ftype in (tfilters.EXP_MFP, tfilters.SHELL):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tfilters.filter_weights(kmag, ftype, 2.0)
+    for ftype in (tfilters.LYA_MS, 7):
+        with pytest.raises(ValueError, match="unknown filter type"):
+            tfilters.filter_weights(kmag, ftype, 2.0, 3.0)
+        with pytest.raises(ValueError, match="unknown filter type"):
+            jfilters.filter_weights(jnp.asarray(kmag.numpy()), ftype, 2.0, 3.0)
+    for ftype, r_param in ((tfilters.EXP_MFP, 30.0), (tfilters.SHELL, 1.0)):
+        w = tfilters.filter_weights(kmag, ftype, 2.0, r_param)
+        assert w.dtype == torch.float32 and bool(torch.isfinite(w).all())
+        assert 0.8 < float(w.flatten()[0]) <= 1.0
 
 
 @pytest.mark.parametrize("out_shape", [(4, 5, 6), (3, 4, 5), (8, 10, 12)])

@@ -17,6 +17,7 @@ them for the SWEPT path:
                        (the gates of tests/test_golden.py).
 """
 
+import _torch_threads  # noqa: F401
 import numpy as np
 import pytest
 from test_torch_ics import FIELDS, jax_inputs, numpy_grf, port_inputs

@@ -14,6 +14,7 @@ each variant is compared on that identical state:
               max-abs <= 1e-6 of the maximum.
 """
 
+import _torch_threads  # noqa: F401
 import jax.numpy as jnp
 import numpy as np
 import pytest

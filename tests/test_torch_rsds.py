@@ -19,6 +19,7 @@ Tolerances:
       within 1e-3 (xH) and 1e-3 max|Tb|.
 """
 
+import _torch_threads  # noqa: F401
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -16,6 +16,7 @@ Plus the scroll's own contract: which redshifts it visits and yields, what it
 hands from node to node, and what it still refuses.
 """
 
+import _torch_threads  # noqa: F401
 import numpy as np
 import pytest
 from test_torch_ics import jax_inputs, numpy_grf, port_inputs
@@ -189,17 +190,28 @@ def test_no_evolution_means_no_coupling(calls):
     "over, item",
     [
         (dict(USE_TS_FLUCT=True, USE_MINI_HALOS=True), None),
-        (dict(USE_TS_FLUCT=True, SOURCE_MODEL="L-INTEGRAL"), 12),
+        (dict(USE_TS_FLUCT=True, SOURCE_MODEL="L-INTEGRAL"), None),
         (dict(USE_TS_FLUCT=True, HEAT_FILTER="SHARP-K"), None),
-        (dict(RECOMB_MODEL="INHOMOGENEOUS", IONISE_ENTIRE_SPHERE=True, R_BUBBLE_MAX=5.0), 6),
+        (dict(RECOMB_MODEL="INHOMOGENEOUS", IONISE_ENTIRE_SPHERE=True, R_BUBBLE_MAX=5.0), None),
+        (dict(USE_TS_FLUCT=True, SOURCE_MODEL="CHMF-SAMPLER"), 13),
+        (dict(USE_TS_FLUCT=True, PHOTON_CONS_TYPE="Z-PHOTONCONS"), 14),
     ],
-    ids=["minihalos", "L-INTEGRAL", "sharp-k-heat-filter-runs", "IONISE_ENTIRE_SPHERE"],
+    ids=["minihalos", "L-INTEGRAL", "sharp-k-heat-filter-runs", "IONISE_ENTIRE_SPHERE",
+         "CHMF-SAMPLER-raises", "Z-PHOTONCONS-raises"],
 )
 def test_evolving_options_outside_the_slice_raise(over, item):
     inp = _small_inputs(**over).with_logspaced_redshifts(8.0, 12.0)
     if item is None:
         out = t21.run_coeval(inp, 8.0, device="cpu")
-        assert np.isfinite(out.spin_temp.spin_temperature.numpy()).all()
+        assert np.isfinite(out.brightness_temp.numpy()).all()
+        if out.spin_temp is not None:
+            assert np.isfinite(out.spin_temp.spin_temperature.numpy()).all()
+        if inp.matter_options.SOURCE_MODEL == "L-INTEGRAL":
+            # the fixed-grid sources: a HaloBox at every node
+            assert np.isfinite(out.halobox.halo_sfr.numpy()).all()
+            assert float(out.halobox.halo_xray.max()) > 0.0
+        if inp.astro_options.IONISE_ENTIRE_SPHERE:
+            assert float(out.ionized_box.neutral_fraction.min()) == 0.0
         if inp.astro_options.USE_MINI_HALOS:
             # the minihalo state is carried down the node ladder
             assert np.isfinite(out.spin_temp.J_21_LW.numpy()).all()

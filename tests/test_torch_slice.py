@@ -14,6 +14,7 @@ Plus the port's guards: no JAX imports, no silent CPU fallback, and
 NotImplementedError for options outside the slice.
 """
 
+import _torch_threads  # noqa: F401
 import ast
 import subprocess
 import sys
@@ -28,6 +29,7 @@ from test_torch_ics import jax_inputs, numpy_grf, port_inputs
 import py21cmfast_torch as t21
 from py21cmfast_torch import interop
 from py21cmfast_torch.models import brightness as tbright
+from py21cmfast_torch.models.halobox import compute_fixed_halo_grid
 from py21cmfast_torch.models import ionization as tion
 from py21cmfast_torch.models import perturb as tpert
 from py21cmfast_tpu.drivers.coeval import run_coeval as j_run_coeval
@@ -251,7 +253,8 @@ def no_cuda():
 @pytest.mark.parametrize(
     "call",
     ["compute_initial_conditions", "perturb_field", "compute_ionization_field",
-     "brightness_temperature", "run_coeval", "interop", "run_lightcone"],
+     "brightness_temperature", "run_coeval", "interop", "run_lightcone",
+     "compute_xray_source_field", "compute_fixed_halo_grid"],
 )
 def test_entry_points_default_to_cuda(no_cuda, call):
     """Called without device=, an entry point asks for the card and raises
@@ -266,16 +269,22 @@ def test_entry_points_default_to_cuda(no_cuda, call):
         "run_coeval": lambda: t21.run_coeval(inp, 8.0),
         "interop": lambda: interop.perturbed_field_from_numpy({"density": np.zeros((2, 2, 2))}),
         "run_lightcone": lambda: t21.run_lightcone(inp.with_logspaced_redshifts(8.0, 10.0)),
+        "compute_xray_source_field": lambda: t21.compute_xray_source_field(8.0, inp, []),
+        "compute_fixed_halo_grid": lambda: compute_fixed_halo_grid(
+            8.0, inp.evolve_input_structs(SOURCE_MODEL="L-INTEGRAL"), None),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[call]()
 
 
-# options that once raised here and run since the minihalo slice
+# options that once raised here and run since the minihalo slice and the
+# fixed-grid source slice
 RUN_ON_CPU = (
     dict(USE_TS_FLUCT=True, USE_MINI_HALOS=True),
     dict(USE_MINI_HALOS=True),
     dict(V_CB_MODEL="FLUCTS"),
+    dict(SOURCE_MODEL="L-INTEGRAL"),
+    dict(IONISE_ENTIRE_SPHERE=True),
 )
 
 
@@ -296,7 +305,8 @@ RUN_ON_CPU = (
 )
 def test_options_outside_the_slice_raise(over):
     """Options outside the port raise; the minihalo and v_cb options (ROADMAP
-    Queue 1 item 11) now run on the CPU and give finite boxes."""
+    Queue 1 item 11), L-INTEGRAL (item 12) and IONISE_ENTIRE_SPHERE (item 6)
+    now run on the CPU and give finite boxes."""
     inp = t21.InputParameters(random_seed=1).evolve_input_structs(
         HII_DIM=8, DIM=16, BOX_LEN=16.0, SOURCE_MODEL="E-INTEGRAL").evolve_input_structs(**over)
     if over in RUN_ON_CPU:
@@ -308,6 +318,9 @@ def test_options_outside_the_slice_raise(over):
             assert float(ion.log10_Mturnover_MINI_ave) > 5.0
         if over.get("USE_TS_FLUCT"):
             assert np.isfinite(out.spin_temp.J_21_LW.numpy()).all()
+        if over.get("SOURCE_MODEL") == "L-INTEGRAL":
+            assert np.isfinite(out.halobox.n_ion.numpy()).all()
+            assert float(out.halobox.n_ion.max()) > 0.0
         vcb = out.initial_conditions.lowres_vcb
         assert (vcb is not None) == (over.get("V_CB_MODEL") == "FLUCTS")
         if vcb is not None:
@@ -320,8 +333,9 @@ def test_options_outside_the_slice_raise(over):
 
 def test_cache_and_node_scroll_raise():
     """The cache still raises, with and without a node ladder; the node
-    scroll itself runs (tests/test_torch_scroll.py), and a Lagrangian source
-    box handed to its Ts step raises."""
+    scroll itself runs (tests/test_torch_scroll.py, with Lagrangian source
+    boxes tests/test_torch_fixed_halos.py), and a device mesh handed to its Ts
+    step or to the XraySourceBox raises."""
     from py21cmfast_torch.models import spintemp as tspin
 
     inp = t21.InputParameters(random_seed=1).evolve_input_structs(
@@ -330,8 +344,10 @@ def test_cache_and_node_scroll_raise():
         t21.run_coeval(inp, 8.0, cache=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="cache"):
         t21.run_coeval(inp.with_logspaced_redshifts(8.0, 12.0), 8.0, cache=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="XraySourceBox"):
-        tspin.compute_spin_temperature(8.0, inp, None, source_box=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="mesh.*item 17"):
+        tspin.compute_spin_temperature(8.0, inp, None, mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="mesh.*item 17"):
+        t21.compute_xray_source_field(8.0, inp, [], mesh=object(), device="cpu")
 
 
 def test_lightcone_cache_raises():

@@ -3,6 +3,7 @@
 the CPU.
 
 One JAX Ts chain runs down the golden "ts" ladder (27.08 -> 10.5, 5 nodes)
+import _torch_threads  # noqa: F401
 from a numpy Gaussian density; the arguments and results of the JAX package's
 `_ts_shell_scan` and `_ts_cell_update` are recorded at every node, so each of
 the port's functions is held to the JAX one on identical inputs:
@@ -345,15 +346,20 @@ def test_first_node_and_z_heat_max_give_the_initial_state(chain):
 
 
 @pytest.mark.parametrize(
-    "kwargs, match",
-    [(dict(source_box=object()), "item 12"), (dict(mesh=object()), "item 17")],
+    "kwargs, over, match",
+    [(dict(source_box=object()), dict(SOURCE_MODEL="CHMF-SAMPLER"), "item 13"),
+     (dict(mesh=object()), dict(), "item 17")],
     ids=["source_box", "mesh"],
 )
-def test_arguments_outside_the_slice_raise(chain, kwargs, match):
+def test_arguments_outside_the_slice_raise(chain, kwargs, over, match):
+    """A device mesh still raises; a source box runs for the fixed-grid
+    sources (tests/test_torch_fixed_halos.py) and raises for the halo
+    sampler's."""
     nd = chain["nodes"][1]
     pf = interop.perturbed_field_from_numpy(_numpy(nd["pf"]), "cpu")
+    inputs = chain["tinp"].evolve_input_structs(**over) if over else chain["tinp"]
     with pytest.raises(NotImplementedError, match=match):
-        tsp.compute_spin_temperature(nd["z"], chain["tinp"], pf, device="cpu", **kwargs)
+        tsp.compute_spin_temperature(nd["z"], inputs, pf, device="cpu", **kwargs)
 
 
 def test_trilerp_matches_jax():
