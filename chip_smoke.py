@@ -37,6 +37,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      the CPU from one hires density: per node the HaloBox grids, every
      XraySourceBox stack, Ts, Tk, x_e, J_21_LW, xH and Tb, then the cones as
      in 4d;
+  4g. discrete halos at golden size, card against CPU, the draws made by CPU
+     generators: DexM with one stratum grid, the grid sampler's chunk,
+     _fix_mass_keep and the MASS- and NUMBER-LIMITED progenitor cores
+     (identical keep masks and centres, masses within 1e-6); then the
+     latest-discrete and minihalos-discrete lightcones, 5 nodes, as in 4f
+     with equal halo counts at every node;
   5. the first main path: run_coeval of the simple+size-medium template
      (HII_DIM=128, DIM=384, 256 Mpc) at z=10 and z=8, with every kernel's
      launch count zeroed just before and read just after;
@@ -68,7 +74,17 @@ Phases, in order; any failure raises and the script exits non-zero:
      memory, 92 deposit launches, a fully written finite cone, and the node
      nearest z=8 by stage (the HaloBox's host tables, gathers and
      displacement scatter apart, the XraySourceBox, Ts, ionize, Tb), with
-     CUDA-event times of the displacement scatter.
+     CUDA-event times of the displacement scatter;
+  12. the sixth main path: the latest-discrete template (CHMF-SAMPLER with
+     MASS-LIMITED progenitors, USE_TS_FLUCT, INHOMOGENEOUS) at 128^3 / 384^3
+     in a 192 Mpc box (its 1.5 Mpc cell) down the headline's 92 nodes, as
+     phase 9, from the default CUDA generators: the catalog chain's wall,
+     whole and by step, the halo counts, the host memory of the waiting catalogs, a
+     statistical gate on the z=5 grid sample (its count within 1% of the
+     expected, each of 4 mass octaves within 5 sigma of the conditional MF),
+     and the node nearest z=8 by stage (perturb_halo_catalog, the halo
+     properties, the halo CIC with CUDA-event times, the sub-sampler grids,
+     the XraySourceBox, Ts, ionize, Tb).
 The line before the last is a JSON object of kernel numbers; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero and
 prints no result.
@@ -77,6 +93,7 @@ prints no result.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -858,6 +875,91 @@ def _fixed_halos_stages(inputs, ics, s, z):
     return stages, parts
 
 
+def _discrete_halos_stages(inputs, ics, s, z):
+    """The sampled-halo stages of one node: perturb_halo_catalog from the
+    node's catalog (on the card), the HaloBox whole and by its parts (the
+    halo properties, the halo CIC, the sub-sampler grids; the parts are not
+    summed into the node), the XraySourceBox from the scroll's history and
+    the Ts step that reads it, as (name, prepare, fn, summed)."""
+    import torch
+
+    from py21cmfast_torch.models import halobox as hbm
+    from py21cmfast_torch.models import halos, spintemp, xray_source
+    from py21cmfast_torch.models.hmf import set_scaling_constants
+    from py21cmfast_torch.ops import grids
+
+    so = inputs.simulation_options
+    parts = {}
+    lo = so.lowres_shape
+
+    def perturb_catalog():
+        return halos.perturb_halo_catalog(z, inputs, ics, s["catalog"])
+
+    def halobox_whole():
+        return hbm.compute_halo_grid(
+            z, inputs, parts["pt"], previous_spin_temp=s["prev_ts"],
+            previous_ionized_box=s["prev_ion"], lagrangian_delta=ics.lowres_density,
+            lowres_vcb=ics.lowres_vcb, ics=ics)
+
+    def prep_pt():
+        parts["pt"] = perturb_catalog()
+        parts["pos"] = grids.true_div(parts["pt"].halo_coords, so.box_len / so.HII_DIM)
+
+    def props():
+        pt, sc = parts["pt"], set_scaling_constants(z, inputs)
+        mt_a, mt_m, *_ = hbm._halo_turnovers(z, inputs, sc, pt.halo_masses, parts["pos"],
+                                             s["prev_ts"], s["prev_ion"], ics.lowres_vcb,
+                                             torch.device("cuda"))
+        return hbm._halo_props_kernel(
+            pt.halo_masses, pt.star_rng, pt.sfr_rng, pt.xray_rng, mt_a, mt_m,
+            hbm._scaling_consts_dict(sc, inputs.cosmology, z, inputs.astro_options),
+            **hbm._props_flags(sc, inputs.astro_options))
+
+    def prep_cic():
+        prep_pt()
+        p = props()
+        dep = [p["n_ion"], p["sfr"], p["wsfr"], p["xray38"], p["stellar"],
+               torch.ones_like(parts["pt"].halo_masses)]
+        if inputs.astro_options.USE_MINI_HALOS:
+            dep += [p["sfr_mini"], p["stellar_mini"]]
+        parts["dep"] = dep
+
+    def cic():
+        return hbm._cic_deposit(parts["pt"].halo_masses, parts["pos"], parts["dep"], lo)
+
+    def sub_grid():
+        mt = (None, None)
+        if inputs.astro_options.USE_MINI_HALOS:
+            mt = hbm._mcrit_grids(z, inputs, set_scaling_constants(z, inputs), s["prev_ts"],
+                                  s["prev_ion"], ics.lowres_vcb)
+        return hbm.compute_fixed_halo_grid(z, inputs, ics.lowres_density,
+                                           m_max=so.SAMPLER_MIN_MASS, mt_a_grid=mt[0],
+                                           mt_m_grid=mt[1], ics=ics)
+
+    def source_box():
+        return xray_source.compute_xray_source_field(
+            z, inputs, s["history"], previous_ionized_box=s["prev_ion"])
+
+    def prep_ts():
+        parts["source"] = source_box()
+
+    def ts_step():
+        return spintemp.compute_spin_temperature(
+            z, inputs, s["pf"], prev_state=s["prev_ts"], prev_redshift=s["prev_z"],
+            initial_conditions=ics, source_box=parts["source"], previous_ionized_box=s["prev_ion"])
+
+    stages = [
+        ("perturb_halo_catalog", None, perturb_catalog, True),
+        ("HaloBox", prep_pt, halobox_whole, True),
+        ("halo properties", prep_pt, props, False),
+        ("halo CIC", prep_cic, cic, False),
+        ("sub-sampler grid", None, sub_grid, False),
+        ("XraySourceBox", None, source_box, True),
+        ("Ts", prep_ts, ts_step, True),
+    ]
+    return stages, parts
+
+
 def _node_stages(inputs, ics, s, tag):
     """Warm, synchronised per-stage times at one node of a scroll, each stage
     recomputed from the state the scroll handed it, then its device-busy
@@ -876,7 +978,9 @@ def _node_stages(inputs, ics, s, tag):
             fut.result()
 
     z = s["z"]
-    lagrangian = inputs.matter_options.SOURCE_MODEL == "L-INTEGRAL"
+    mo = inputs.matter_options
+    sampler = mo.source_model_uses_halo_sampler
+    lagrangian = mo.source_model_uses_lagrangian_grids
     parts = {}
 
     def ts_step():
@@ -885,7 +989,10 @@ def _node_stages(inputs, ics, s, tag):
             initial_conditions=ics, previous_ionized_box=s["prev_ion"])
 
     stages = [("perturb", None, lambda: p21.perturb_field(z, inputs, ics), True)]
-    if lagrangian:
+    if sampler:
+        lagr_stages, parts = _discrete_halos_stages(inputs, ics, s, z)
+        stages += lagr_stages
+    elif lagrangian:
         lagr_stages, parts = _fixed_halos_stages(inputs, ics, s, z)
         stages += lagr_stages
     else:
@@ -921,7 +1028,15 @@ def _node_stages(inputs, ics, s, tag):
     summed = ", ".join(name for name, _, _, on in stages if on)
     print(f"[{tag}] z={z:.3f} node of {summed}: {sum(walls):.2f} ms wall, {sum(busies):.3f} ms "
           f"device busy ({100 * sum(busies) / sum(walls):.1f}%)")
-    if lagrangian:
+    if sampler:
+        prepare = next(st[1] for st in stages if st[0] == "halo CIC")
+        prepare()
+        ms = _event_median_ms(lambda: next(st[2] for st in stages if st[0] == "halo CIC")(), reps=10)
+        print(f"[{tag}] z={z:.3f} halo CIC ({len(parts['dep'])} property fields of "
+              f"{parts['pt'].n_halos} halos onto {inputs.simulation_options.lowres_shape}, 8 CIC "
+              f"corners each): {ms:.3f} ms a call (CUDA events, median of 10)")
+        parts.clear()
+    elif lagrangian:
         n_props = len(parts["scatter"][0])
         ms = _event_median_ms(lambda: stages[4][2](), reps=10)
         print(f"[{tag}] z={z:.3f} _displace_grids ({n_props} property grids of "
@@ -1164,97 +1279,245 @@ def _host_fields(struct, names):
             for n in names}
 
 
-def fixed_halos_small_phase():
-    """Golden-size L-INTEGRAL lightcones on the card against the CPU, from one
-    hires density: the fixed-halos template, with minihalos, and with
-    minihalos and the Lya multiple-scattering window (straight-line LW
-    shells).  Per node: the HaloBox grids and every XraySourceBox stack at
-    most 1e-3 of the cells off by 1e-4 of the maximum (of the stack's shell);
-    Ts, Tk, x_e, J_21_LW, xH and Tb as in phase 4e; then the cones as in 4d."""
+def _card_vs_cpu_lagrangian(tag, label, inputs):
+    """One golden-size lightcone with Lagrangian sources (dvdr and RSDs on)
+    on the card against the CPU, from one hires density.  With a halo
+    sampler both devices run the catalog chain from CPU generators of one
+    seed (`halos.default_generator` on the CPU), so the draws are the same,
+    and the halo counts must be equal at every node.  Per node: the HaloBox
+    grids and every XraySourceBox stack at most 1e-3 of the cells off by
+    1e-4 of the maximum (of the stack's shell); Ts, Tk, x_e, J_21_LW, xH and
+    Tb as in phase 4e; then the cones as in 4d."""
     import py21cmfast_torch as p21
-    from py21cmfast_torch.models import xray_source
+    from py21cmfast_torch.models import halos, xray_source
+
+    ics_cpu = p21.compute_initial_conditions(inputs, device="cpu")
+    ics_gpu = p21.compute_initial_conditions(inputs, initial_density=ics_cpu.hires_density.numpy())
+    source_field = xray_source.compute_xray_source_field
+    determine = halos.determine_halo_catalog
+    runs, nodes, counts = {}, {}, {}
+    for dev, ics in (("cpu", ics_cpu), ("cuda", ics_gpu)):
+        sources, counts[dev] = {}, {}
+
+        def recorded(z, *a, sources=sources, **kw):
+            out = source_field(z, *a, **kw)
+            sources[z] = _host_fields(out, SOURCE_FIELDS)
+            return out
+
+        def from_cpu_generator(z, inputs_, *a, counts=counts[dev], **kw):
+            kw["generator"] = halos.default_generator(inputs_, z, "cpu")
+            cat = determine(z, inputs_, *a, **kw)
+            counts[z] = cat.n_halos
+            return cat
+
+        lcr, written = _tracked_lightconer(inputs)
+        nodes[dev] = []
+        xray_source.compute_xray_source_field = recorded
+        halos.determine_halo_catalog = from_cpu_generator
+        try:
+            for z, cv, lc in p21.generate_lightcone(
+                    inputs, lightconer=lcr, initial_conditions=ics, device=dev):
+                if z is not None:
+                    fields, _, _ = _minihalo_node(cv)
+                    fields.update(_host_fields(cv.halobox, HALOBOX_FIELDS))
+                    nodes[dev].append((z, fields))
+        finally:
+            xray_source.compute_xray_source_field = source_field
+            halos.determine_halo_catalog = determine
+        for z, fields in nodes[dev]:
+            fields["source"] = sources.get(z)
+        runs[dev] = (lc, written, _check_written(written, lcr, inputs, f"{label} on {dev}"))
+
+    ok = True
+    n_sources = 0
+    for (z, c), (_, g) in zip(nodes["cpu"], nodes["cuda"]):
+        worst = {}
+        for name in MINIHALO_FIELDS["spin_temp"]:
+            cc, gg = c[name], g[name]
+            if (cc is None) != (gg is None):
+                raise AssertionError(f"{label} z={z:.3f}: {name} on one device only")
+            if cc is None:
+                continue
+            rel = ((gg - cc).abs() / cc.abs().clamp_min(1e-30)).max().item()
+            mean_rel = abs(gg.mean().item() - cc.mean().item()) / max(abs(cc.mean().item()), 1e-30)
+            worst[name] = rel
+            ok &= rel <= 1e-3 and mean_rel <= 1e-4
+        flipped = ((g["neutral_fraction"] - c["neutral_fraction"]).abs() > 1e-3).double().mean().item()
+        ok &= flipped <= 1e-3
+        shares = {}
+        grids = [(n, c[n], g[n]) for n in ("brightness_temp",) + HALOBOX_FIELDS]
+        if (c["source"] is None) != (g["source"] is None):
+            raise AssertionError(f"{label} z={z:.3f}: an XraySourceBox on one device only")
+        if c["source"] is not None:
+            n_sources += 1
+            grids += [(n, c["source"][n], g["source"][n]) for n in SOURCE_FIELDS]
+        for name, cc, gg in grids:
+            if (cc is None) != (gg is None):
+                raise AssertionError(f"{label} z={z:.3f}: {name} on one device only")
+            if cc is None:
+                continue
+            # a stack is held shell by shell, against the shell's maximum
+            scale = (cc.abs().amax(dim=(-3, -2, -1), keepdim=True) if cc.ndim == 4
+                     else cc.abs().max())
+            diff = (gg - cc).abs()
+            shares[name] = ((diff > 1e-4 * scale).double().mean().item(),
+                            (diff / scale.clamp_min(1e-30)).max().item())
+            ok &= shares[name][0] <= 1e-3
+        halo_txt = ""
+        if counts["cpu"]:
+            n_c, n_g = counts["cpu"][z], counts["cuda"][z]
+            halo_txt = f"halos {n_g} card vs {n_c} CPU; "
+            ok &= n_c == n_g
+        print(f"[{tag}] {label} z={z:.3f}: {halo_txt}worst cell rel "
+              f"{{{', '.join(f'{k}: {v:.2e}' for k, v in worst.items())}}} (limit 1e-3); xH "
+              f"flipped share {flipped:.2e}; (share off by > 1e-4 max, max err / max) "
+              f"{{{', '.join(f'{k}: ({v[0]:.2e}, {v[1]:.2e})' for k, v in shares.items())}}}")
+    if not ok:
+        raise AssertionError(f"the golden-size {label}'s nodes on the card disagree with the CPU run")
+    if n_sources != len(inputs.node_redshifts) - 1:
+        raise AssertionError(f"{label}: {n_sources} XraySourceBoxes in {len(nodes['cpu'])} nodes")
+    if inputs.astro_options.LYA_MULTIPLE_SCATTERING and inputs.astro_options.USE_MINI_HALOS and (
+            nodes["cuda"][-1][1]["source"]["filtered_sfr_lw"] is None):
+        raise AssertionError(f"{label}: no straight-line LW shells")
+    _card_vs_cpu_cones(label, inputs, runs)
+
+
+def fixed_halos_small_phase():
+    """Phase 4f: golden-size L-INTEGRAL lightcones on the card against the
+    CPU (`_card_vs_cpu_lagrangian`): the fixed-halos template, with
+    minihalos, and with minihalos and the Lya multiple-scattering window
+    (straight-line LW shells)."""
+    import py21cmfast_torch as p21
 
     size = {k: v for k, v in GOLDEN_SIZE.items() if k != "SOURCE_MODEL"}
-    source_field = xray_source.compute_xray_source_field
     for label, over in FIXED_HALOS_SMALL.items():
         inputs = p21.InputParameters.from_template(
             FIXED_HALOS_TEMPLATE, random_seed=SEED
         ).evolve_input_structs(**size, R_BUBBLE_MAX=12.0, **over).with_logspaced_redshifts(10.5, 25.0)
         if inputs.matter_options.SOURCE_MODEL != "L-INTEGRAL":
             raise AssertionError(f"{FIXED_HALOS_TEMPLATE} does not use L-INTEGRAL sources")
-        ics_cpu = p21.compute_initial_conditions(inputs, device="cpu")
-        ics_gpu = p21.compute_initial_conditions(inputs, initial_density=ics_cpu.hires_density.numpy())
-        runs, nodes = {}, {}
-        for dev, ics in (("cpu", ics_cpu), ("cuda", ics_gpu)):
-            sources = {}
+        _card_vs_cpu_lagrangian("fixed-halos-small", label, inputs)
 
-            def recorded(z, *a, sources=sources, **kw):
-                out = source_field(z, *a, **kw)
-                sources[z] = _host_fields(out, SOURCE_FIELDS)
-                return out
 
-            lcr, written = _tracked_lightconer(inputs)
-            nodes[dev] = []
-            xray_source.compute_xray_source_field = recorded
-            try:
-                for z, cv, lc in p21.generate_lightcone(
-                        inputs, lightconer=lcr, initial_conditions=ics, device=dev):
-                    if z is not None:
-                        fields, _, _ = _minihalo_node(cv)
-                        fields.update(_host_fields(cv.halobox, HALOBOX_FIELDS))
-                        nodes[dev].append((z, fields))
-            finally:
-                xray_source.compute_xray_source_field = source_field
-            for z, fields in nodes[dev]:
-                fields["source"] = sources.get(z)
-            runs[dev] = (lc, written, _check_written(written, lcr, inputs, f"{label} on {dev}"))
+# phase 4g's golden-size discrete-halo lightcones, by template
+DISCRETE_TEMPLATE = "latest-discrete"
+DISCRETE_SMALL = {"latest-discrete lightcone": DISCRETE_TEMPLATE,
+                  "minihalos-discrete lightcone": "minihalos-discrete"}
+# masses of the card-vs-CPU core checks: the same ln M on both devices (log(u)
+# is rounded once from float64), then float32 exp, within 2 ulps on each
+HALO_MASS_REL = 1e-6
 
-        ok = True
-        n_sources = 0
-        for (z, c), (_, g) in zip(nodes["cpu"], nodes["cuda"]):
-            worst = {}
-            for name in MINIHALO_FIELDS["spin_temp"]:
-                cc, gg = c[name], g[name]
-                if (cc is None) != (gg is None):
-                    raise AssertionError(f"{label} z={z:.3f}: {name} on one device only")
-                if cc is None:
-                    continue
-                rel = ((gg - cc).abs() / cc.abs().clamp_min(1e-30)).max().item()
-                mean_rel = abs(gg.mean().item() - cc.mean().item()) / max(abs(cc.mean().item()), 1e-30)
-                worst[name] = rel
-                ok &= rel <= 1e-3 and mean_rel <= 1e-4
-            flipped = ((g["neutral_fraction"] - c["neutral_fraction"]).abs() > 1e-3).double().mean().item()
-            ok &= flipped <= 1e-3
-            shares = {}
-            grids = [(n, c[n], g[n]) for n in ("brightness_temp",) + HALOBOX_FIELDS]
-            if (c["source"] is None) != (g["source"] is None):
-                raise AssertionError(f"{label} z={z:.3f}: an XraySourceBox on one device only")
-            if c["source"] is not None:
-                n_sources += 1
-                grids += [(n, c["source"][n], g["source"][n]) for n in SOURCE_FIELDS]
-            for name, cc, gg in grids:
-                if (cc is None) != (gg is None):
-                    raise AssertionError(f"{label} z={z:.3f}: {name} on one device only")
-                if cc is None:
-                    continue
-                # a stack is held shell by shell, against the shell's maximum
-                scale = (cc.abs().amax(dim=(-3, -2, -1), keepdim=True) if cc.ndim == 4
-                         else cc.abs().max())
-                diff = (gg - cc).abs()
-                shares[name] = ((diff > 1e-4 * scale).double().mean().item(),
-                                (diff / scale.clamp_min(1e-30)).max().item())
-                ok &= shares[name][0] <= 1e-3
-            print(f"[fixed-halos-small] {label} z={z:.3f}: worst cell rel "
-                  f"{{{', '.join(f'{k}: {v:.2e}' for k, v in worst.items())}}} (limit 1e-3); xH "
-                  f"flipped share {flipped:.2e}; (share off by > 1e-4 max, max err / max) "
-                  f"{{{', '.join(f'{k}: ({v[0]:.2e}, {v[1]:.2e})' for k, v in shares.items())}}}")
-        if not ok:
-            raise AssertionError(f"the golden-size {label}'s nodes on the card disagree with the CPU run")
-        if n_sources != len(inputs.node_redshifts) - 1:
-            raise AssertionError(f"{label}: {n_sources} XraySourceBoxes in {len(nodes['cpu'])} nodes")
-        if over.get("LYA_MULTIPLE_SCATTERING") and nodes["cuda"][-1][1]["source"]["filtered_sfr_lw"] is None:
-            raise AssertionError(f"{label}: no straight-line LW shells")
-        _card_vs_cpu_cones(label, inputs, runs)
+
+def _same_halos(label, m_c, m_g, keep_c=None, keep_g=None, pos_c=None, pos_g=None, cell=None):
+    """Card and CPU halos of one core: identical keep masks (or counts), the
+    masses within HALO_MASS_REL of their values, positions within 1e-6 of a
+    cell."""
+    import torch
+
+    if keep_c is not None and not torch.equal(keep_c.cpu(), keep_g.cpu()):
+        n = (keep_c.cpu() != keep_g.cpu()).sum().item()
+        raise AssertionError(f"{label}: {n} keep-mask entries differ between the card and the CPU")
+    m_c, m_g = m_c.cpu().double(), m_g.cpu().double()
+    if m_c.shape != m_g.shape:
+        raise AssertionError(f"{label}: {tuple(m_g.shape)} on the card, {tuple(m_c.shape)} on the CPU")
+    rel = ((m_g - m_c).abs() / m_c.abs().clamp_min(1e-30)).max().item() if m_c.numel() else 0.0
+    txt = f"max mass rel {rel:.2e} (limit {HALO_MASS_REL:.0e})"
+    ok = rel <= HALO_MASS_REL
+    if pos_c is not None:
+        err = (pos_g.cpu().double() - pos_c.cpu().double()).abs().max().item() if pos_c.numel() else 0.0
+        txt += f", max position err {err:.2e} Mpc (limit {1e-6 * cell:.2e})"
+        ok &= err <= 1e-6 * cell
+    print(f"[discrete-small] {label}: {m_c.numel()} entries identical in both; {txt}")
+    if not ok:
+        raise AssertionError(f"{label}: the card disagrees with the CPU")
+
+
+def discrete_cores_phase():
+    """Phase 4g, first part: the sampler's deterministic cores on the card
+    against the CPU at golden size, each fed one set of draws made by a CPU
+    generator: DexM with one stratum grid (identical centres, masses and
+    in_halo mask), the grid sampler's chunk, `_fix_mass_keep` on random
+    inputs, and `_progenitor_draws` MASS- and NUMBER-LIMITED on a catalog of
+    20000 descendants."""
+    import torch
+
+    import py21cmfast_torch as p21
+    from py21cmfast_torch.models import halos
+
+    size = {k: v for k, v in GOLDEN_SIZE.items() if k != "SOURCE_MODEL"}
+    inputs = p21.InputParameters.from_template(DISCRETE_TEMPLATE, random_seed=SEED).evolve_input_structs(
+        **size, R_BUBBLE_MAX=15.0)
+    so = inputs.simulation_options
+    z = 10.5
+    ics_cpu = p21.compute_initial_conditions(inputs, device="cpu")
+    ics_gpu = p21.compute_initial_conditions(inputs, initial_density=ics_cpu.hires_density.numpy())
+    gen = torch.Generator().manual_seed(SEED)
+
+    strata = halos.draw_strata(inputs, gen, "cpu")
+    out = {dev: halos.dexm_halo_grid(z, inputs, ics, stratum_grid=strata, device=dev)
+           for dev, ics in (("cpu", ics_cpu), ("cuda", ics_gpu))}
+    (g_c, in_c), (g_g, in_g) = out["cpu"], out["cuda"]
+    n_c, n_g = int((g_c > 0).sum()), int((g_g > 0).sum())
+    flips = int((in_c != in_g.cpu()).sum())
+    print(f"[discrete-small] DexM at z={z} on {so.hires_shape}: {n_g} centres on the card, {n_c} on "
+          f"the CPU; in_halo cells differing {flips} of {int(in_c.sum())}")
+    if not (torch.equal(g_c, g_g.cpu()) and flips == 0 and n_c > 0):
+        raise AssertionError("DexM on the card disagrees with the CPU")
+    _, _, excl = halos._dexm_catalog(inputs, g_c, in_c)
+
+    h = halos.grid_sampler_tables(z, inputs, ics_cpu.lowres_density, excl)
+    n_exp = torch.as_tensor(h["n_exp"].astype(np.float32))
+    draws = halos._grid_draws(n_exp, h["k_max"], gen, "cpu")
+    res = {}
+    for dev in ("cpu", "cuda"):
+        res[dev] = halos._grid_chunk(
+            inputs, h, torch.as_tensor(h["delta_z"].astype(np.float32), device=dev),
+            torch.as_tensor(h["inv_tab"].astype(np.float32), device=dev), 0,
+            *(d.to(dev) for d in draws))
+    _same_halos(f"grid sampler ({len(n_exp)} cells, k_max {h['k_max']})", res["cpu"][0],
+                res["cuda"][0], pos_c=res["cpu"][1], pos_g=res["cuda"][1],
+                cell=so.box_len / so.HII_DIM)
+
+    rng = np.random.default_rng(SEED)
+    m = torch.as_tensor(np.exp(rng.uniform(np.log(1e8), np.log(1e11), (4096, 64))).astype(np.float32))
+    tgt = (m.sum(dim=1) * torch.as_tensor(rng.uniform(0.0, 1.2, 4096).astype(np.float32)))
+    sel = torch.rand(4096, generator=gen) < 0.5
+    u = torch.rand((4096, 64), generator=gen)
+    keep = {dev: halos._fix_mass_keep(m.to(dev), tgt.to(dev), sel.to(dev), u.to(dev))
+            for dev in ("cpu", "cuda")}
+    _same_halos("_fix_mass_keep (4096 x 64 random draws)", m[keep["cpu"]], m[keep["cuda"].cpu()],
+                keep["cpu"], keep["cuda"])
+
+    n = 20000
+    masses = torch.as_tensor(np.exp(rng.uniform(np.log(1e8), np.log(1e11), n)).astype(np.float32))
+    for method in ("MASS-LIMITED", "NUMBER-LIMITED"):
+        inp = inputs.evolve_input_structs(SAMPLE_METHOD=method)
+        t = halos.progenitor_tables(z + 0.3, inp, z, float(masses.max()))
+        cond_t, m_tgt, n_exp_d, _ = halos._descendant_conditions(inp, t, masses)
+        d = halos._progenitor_rng(n_exp_d.float(), halos.PROGENITOR_K_MAX,
+                                  method == "NUMBER-LIMITED", gen, "cpu")
+        out = {dev: halos._progenitor_draws(
+            cond_t.float().to(dev), m_tgt.float().to(dev),
+            torch.as_tensor(t["inv_tab"].astype(np.float32), device=dev), so.MIN_LOGPROB,
+            so.SAMPLER_MIN_MASS, **{k: v.to(dev) for k, v in d.items()}) for dev in ("cpu", "cuda")}
+        (mc, kc), (mg, kg) = out["cpu"], out["cuda"]
+        _same_halos(f"_progenitor_draws {method} ({n} descendants)", mc[kc], mg[kg].cpu(), kc, kg)
+
+
+def discrete_small_phase():
+    """Phase 4g: the cores (`discrete_cores_phase`), then the golden-size
+    latest-discrete (R_BUBBLE_MAX=15) and minihalos-discrete lightcones, 5
+    nodes, on the card against the CPU (`_card_vs_cpu_lagrangian`)."""
+    import py21cmfast_torch as p21
+
+    discrete_cores_phase()
+    size = {k: v for k, v in GOLDEN_SIZE.items() if k != "SOURCE_MODEL"}
+    for label, template in DISCRETE_SMALL.items():
+        inputs = p21.InputParameters.from_template(template, random_seed=SEED).evolve_input_structs(
+            **size, R_BUBBLE_MAX=15.0).with_logspaced_redshifts(10.5, 25.0)
+        if not inputs.matter_options.source_model_uses_halo_sampler:
+            raise AssertionError(f"{template} does not sample halos")
+        _card_vs_cpu_lagrangian("discrete-small", label, inputs)
 
 
 HEADLINE_SEED = 3
@@ -1334,7 +1597,7 @@ def lightcone_phase(kernels, inputs, ics, ics_s, tag, path, sample_z):
 
     so = inputs.simulation_options
     mini = inputs.astro_options.USE_MINI_HALOS
-    lagrangian = inputs.matter_options.SOURCE_MODEL == "L-INTEGRAL"
+    lagrangian = inputs.matter_options.source_model_uses_lagrangian_grids
     nodes = list(inputs.node_redshifts)
     sample_at = sorted({int(np.argmin(np.abs(np.asarray(nodes) - z))) for z in sample_z})
     lcr, written = _tracked_lightconer(inputs)
@@ -1369,6 +1632,16 @@ def lightcone_phase(kernels, inputs, ics, ics_s, tag, path, sample_z):
             histories[z] = list(halobox_nodes)
         return source_field(z, inputs_, halobox_nodes, *a, **kw)
 
+    # sampled halos: the sampled nodes' catalogs, kept on the host
+    from py21cmfast_torch.models import halos
+    catalogs = {}
+    perturb_catalog = halos.perturb_halo_catalog
+
+    def recorded_catalog(z, inputs_, ics_, catalog, **kw):
+        if z in sample_zs:
+            catalogs[z] = _moved(catalog, "cpu")
+        return perturb_catalog(z, inputs_, ics_, catalog, **kw)
+
     wrappers = {"cic_deposit_swept": deposit.cic_deposit_swept}
     torch.cuda.reset_peak_memory_stats()
     for w in wrappers.values():
@@ -1376,6 +1649,7 @@ def lightcone_phase(kernels, inputs, ics, ics_s, tag, path, sample_z):
     for name, attr in steps.items():
         setattr(rsds, attr, timed(name, originals[name]))
     xray_source.compute_xray_source_field = recorded_source
+    halos.perturb_halo_catalog = recorded_catalog
     seconds, xh, mini_means, samples, prev, lc = [], [], [], {}, None, None
     try:
         torch.cuda.synchronize()
@@ -1404,7 +1678,8 @@ def lightcone_phase(kernels, inputs, ics, ics_s, tag, path, sample_z):
                     z=z, pf=_moved(cv.perturbed_field, "cpu"), ts=_moved(cv.spin_temp, "cpu"),
                     ion=_moved(_without_stacks(ion), "cpu"), prev_ts=_moved(prev[0], "cpu"),
                     prev_ion=_moved(prev[1], "cpu"), prev_pf=_moved(prev[2], "cpu"), prev_z=prev[3],
-                    halobox=_moved(cv.halobox, "cpu"), history=histories.pop(z, None))
+                    halobox=_moved(cv.halobox, "cpu"), history=histories.pop(z, None),
+                    catalog=catalogs.pop(z, None))
             # what the next node's stages read, its Nion stacks only if it is sampled
             prev_ion = _slim_chain_ion(ion, keep_xh=cv.halobox is not None)
             prev = (cv.spin_temp,
@@ -1417,6 +1692,7 @@ def lightcone_phase(kernels, inputs, ics, ics_s, tag, path, sample_z):
         for name, attr in steps.items():
             setattr(rsds, attr, originals[name])
         xray_source.compute_xray_source_field = source_field
+        halos.perturb_halo_catalog = perturb_catalog
     launches = {name: w.launches for name, w in wrappers.items()}
     peak = torch.cuda.max_memory_allocated() / 2**30
     del prev, cv
@@ -1541,6 +1817,168 @@ def fixed_halos_headline_phase(kernels):
     lightcone_phase(kernels, inputs, ics, ics_s, "fixed-halos", "fixed_halos_lightcone", (8.0,))
 
 
+# phase 12: the latest-discrete template at its 1.5 Mpc cell and DIM/HII_DIM = 3
+# down the headline's ladder, in a 192 Mpc box (the one cut: the catalogs of
+# all 92 nodes wait before the scroll, 2.4e9 halos and 64 GiB of host memory
+# here, ~8x that at 384 Mpc)
+DISCRETE_BOX = dict(HII_DIM=128, DIM=384, BOX_LEN=192.0, Z_HEAT_MAX=35.0, ZPRIME_STEP_FACTOR=1.02,
+                    MINIMIZE_MEMORY=True)
+# the free host memory phase 12 needs: its waiting catalogs held 63.8 GiB on an
+# H100 host, and the process peaked at 70.1 GiB resident; checked before phase 1
+DISCRETE_HOST_GIB = 72.0
+
+
+def check_host_memory():
+    """Fail at once, not after the earlier phases, when the host has less free
+    memory than phase 12's waiting catalogs and the rest of the process need."""
+    free = os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE") / 2**30
+    print(f"[host] {free:.3f} GiB of memory free; phase 12 needs {DISCRETE_HOST_GIB} GiB")
+    if free < DISCRETE_HOST_GIB:
+        raise SystemExit(f"chip_smoke: {free:.1f} GiB of host memory free, phase 12 needs "
+                         f"{DISCRETE_HOST_GIB} GiB for the catalogs of its 92 nodes")
+
+
+def _octave_expectation(inputs, z, h, edges):
+    """The conditional MF's expected count of the grid sampler's cells in each
+    mass bin of `edges`: per cell the CMF integral above each edge, from
+    the same delta axis and linear interpolation as its n_exp, summed over
+    the cells that sample (n_exp > 0)."""
+    from py21cmfast_torch.models import hmf
+    from py21cmfast_torch.models.ionization import _get_sigma_table
+
+    so, cosmo = inputs.simulation_options, inputs.cosmology
+    sigma_table = _get_sigma_table(inputs)
+    hmf_int = hmf.HMF_NAMES[inputs.matter_options.HMF]
+    m_cell = cosmo.rho_mean * (so.box_len / so.HII_DIM) ** 3
+    ln_mcell = np.log(m_cell)
+    sigma_cell = float(sigma_table.sigma_of_lnm(ln_mcell))
+    deltas = np.linspace(h["d_lo"], h["d_hi"], so.N_COND_INTERP)
+    live = h["n_exp"] > 0
+    above = [np.interp(h["delta_z"], deltas, hmf.nhalo_conditional(
+        sigma_table, hmf_int, float(cosmo.dicke(z)), np.log(e), ln_mcell, sigma_cell, deltas)
+        * m_cell)[live].sum() for e in edges]
+    return -np.diff(above)
+
+
+def discrete_headline_phase(kernels):
+    """Phase 12, the sixth main path: the latest-discrete lightcone
+    (CHMF-SAMPLER, MASS-LIMITED progenitors, USE_TS_FLUCT, INHOMOGENEOUS)
+    at 128^3 / 384^3 in 192 Mpc down the headline's 92 nodes, from the
+    default CUDA generators, through lightcone_phase.  Its catalog chain is
+    timed whole (one synchronised wall) and by step (DexM, the grid sampler,
+    the progenitors of each node, the moves between the card and the host),
+    with the halo counts and the host
+    memory the waiting catalogs hold.  A statistical gate on the z=5 grid
+    sample: its count within 1% of the expected sum(n_exp) (plus one halo
+    per collapsed cell), and its count in each of 4 mass octaves from
+    SAMPLER_MIN_MASS within 5 sigma of the conditional MF's expectation."""
+    import resource
+
+    import torch
+
+    import py21cmfast_torch as p21
+    from py21cmfast_torch import outputs
+    from py21cmfast_torch.models import halos
+
+    inputs = p21.InputParameters.from_template(
+        DISCRETE_TEMPLATE, random_seed=HEADLINE_SEED
+    ).evolve_input_structs(**DISCRETE_BOX).with_logspaced_redshifts(HEADLINE_Z_END)
+    so = inputs.simulation_options
+    if not inputs.matter_options.source_model_uses_halo_sampler:
+        raise AssertionError(f"{DISCRETE_TEMPLATE} does not sample halos")
+    ics, ics_s = _sync_time(lambda: p21.compute_initial_conditions(inputs))
+    torch.cuda.empty_cache()
+
+    walls = {"DexM": [], "grid sampler": [], "progenitors": [], "to card": [], "to host": []}
+    counts, host_bytes, gate, chain_wall = {}, [0], {}, {}
+    originals = {name: getattr(halos, name) for name in (
+        "dexm_halo_grid", "sample_halo_grid", "grid_sampler_tables", "_sample_progenitors",
+        "determine_halo_catalog")}
+    catalog_to = outputs.HaloCatalog.to
+
+    def timed(key, fn):
+        def run(*a, **kw):
+            out, t = _sync_time(lambda: fn(*a, **kw))
+            walls[key].append(t)
+            return out
+        return run
+
+    def tables(z, *a, **kw):
+        gate["h"] = originals["grid_sampler_tables"](z, *a, **kw)
+        gate["z"] = z
+        return gate["h"]
+
+    def sampled(*a, **kw):
+        masses, pos = timed("grid sampler", originals["sample_halo_grid"])(*a, **kw)
+        gate["masses"] = masses
+        return masses, pos
+
+    def determine(z, *a, **kw):
+        if not chain_wall:
+            torch.cuda.synchronize()
+            chain_wall["start"] = time.perf_counter()
+        cat = originals["determine_halo_catalog"](z, *a, **kw)
+        counts[z] = cat.n_halos
+        return cat
+
+    def moved(self, device):
+        out, t = _sync_time(lambda: catalog_to(self, device))
+        if torch.device(device).type == "cpu":
+            walls["to host"].append(t)
+            chain_wall["end"] = time.perf_counter()
+            host_bytes[0] += sum(v.numel() * v.element_size() for v in vars(out).values()
+                                 if isinstance(v, torch.Tensor))
+        else:
+            walls["to card"].append(t)
+        return out
+
+    halos.dexm_halo_grid = timed("DexM", originals["dexm_halo_grid"])
+    halos.sample_halo_grid = sampled
+    halos.grid_sampler_tables = tables
+    halos._sample_progenitors = timed("progenitors", originals["_sample_progenitors"])
+    halos.determine_halo_catalog = determine
+    outputs.HaloCatalog.to = moved
+    try:
+        lightcone_phase(kernels, inputs, ics, ics_s, "latest-discrete", "discrete_lightcone", (8.0,))
+    finally:
+        for name, fn in originals.items():
+            setattr(halos, name, fn)
+        outputs.HaloCatalog.to = catalog_to
+
+    zs = sorted(counts)
+    z8 = min(zs, key=lambda z: abs(z - 8.0))
+    prog = np.array(walls["progenitors"])
+    parts = sum(sum(v) for k, v in walls.items() if k != "to card")
+    wall = chain_wall["end"] - chain_wall["start"]
+    print(f"[latest-discrete] catalog chain over {len(zs)} nodes: {wall:.2f} s wall before the "
+          f"scroll, from the first catalog's start to the last one on the host; its timed parts "
+          f"{parts:.2f} s, the host work between them {wall - parts:.2f} s; DexM {sum(walls['DexM']):.3f} s, grid sampler {sum(walls['grid sampler']):.3f} s, "
+          f"progenitors {prog.sum():.2f} s ({len(prog)} steps: median {np.median(prog):.4f} s, max "
+          f"{prog.max():.4f} s), card -> host {sum(walls['to host']):.2f} s; host -> card at the "
+          f"nodes {sum(walls['to card']):.2f} s (median {np.median(walls['to card']):.4f} s)")
+    print(f"[latest-discrete] halos at z={zs[0]}: {counts[zs[0]]}, at z={z8:.4f}: {counts[z8]}, at "
+          f"z={zs[-1]:.3f}: {counts[zs[-1]]}; {sum(counts.values())} in all {len(zs)} catalogs, which "
+          f"held {host_bytes[0] / 2**30:.3f} GiB of host memory while they waited; the process's "
+          f"peak resident memory {resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.3f} GiB")
+
+    # the statistical gate on the z=5 grid sample (the collapsed cells' halos last)
+    h, masses = gate["h"], gate["masses"]
+    n_coll = int(h["collapsed"].sum())
+    sampled_m = masses[: masses.numel() - n_coll]
+    n, n_exp = masses.numel(), h["n_expected"]
+    edges = so.SAMPLER_MIN_MASS * 2.0 ** np.arange(5)
+    got = torch.histc(torch.log2(sampled_m.double() / so.SAMPLER_MIN_MASS), bins=4, min=0,
+                      max=4).cpu().numpy()
+    expect = _octave_expectation(inputs, gate["z"], h, edges)
+    sig = (got - expect) / np.sqrt(expect)
+    print(f"[latest-discrete] z={gate['z']} grid sample: {n} halos against sum(n_exp) + collapsed "
+          f"cells {n_exp:.1f} ({n / n_exp - 1:+.3e}, limit 1%); by mass octave from "
+          f"{so.SAMPLER_MIN_MASS:.0e}: {got.astype(int).tolist()} against the CMF's "
+          f"{np.round(expect, 1).tolist()}, ({np.round(sig, 3).tolist()}) sigma (limit 5)")
+    if not (abs(n / n_exp - 1) <= 0.01 and np.all(np.abs(sig) <= 5.0)):
+        raise AssertionError("the z=5 grid sample fails its statistical gate")
+
+
 def main():
     import torch
 
@@ -1550,6 +1988,7 @@ def main():
 
     t0 = time.perf_counter()
     card_info()
+    check_host_memory()
     build_kernels()
     entry, headline = kernel_phase()
     kernels = [entry]
@@ -1559,6 +1998,7 @@ def main():
     lightcone_small_phase()
     minihalo_small_phase()
     fixed_halos_small_phase()
+    discrete_small_phase()
     main_path_phase(kernels)
     stage_phase()
     scroll_stage_phase(*scroll_phase(kernels))
@@ -1568,6 +2008,8 @@ def main():
     minihalo_headline_phase(kernels)
     torch.cuda.empty_cache()
     fixed_halos_headline_phase(kernels)
+    torch.cuda.empty_cache()
+    discrete_headline_phase(kernels)
     print(f"[total] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

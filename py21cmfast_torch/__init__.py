@@ -8,7 +8,10 @@ that scroll with the velocity-gradient correction and RSDs, for the
 density-conditioned (E-INTEGRAL, CONST-ION-EFF) and fixed-grid (L-INTEGRAL,
 through the HaloBox and the XraySourceBox) source models, with the JAX
 package's names and inputs.  Device fields are float32 tensors, host tables float64.  Every entry point takes `device="cuda"` and runs on the card;
-the CPU is used only when the caller passes `device="cpu"`.  Options that are
+the CPU is used only when the caller passes `device="cpu"`.  Discrete
+halos (SOURCE_MODEL 'CHMF-SAMPLER' and 'DEXM-ESF': DexM, the CHMF grid
+sampler, mass- or number-limited progenitors, the perturbed catalog and its
+HaloBox) run through the same entry points.  Options that are
 not ported yet raise NotImplementedError naming the ROADMAP item that brings
 them.  The swept CIC deposit is a hand-written CUDA kernel
 (`csrc/cic_deposit.cu`), built with nvcc at its first use.
@@ -25,6 +28,7 @@ from ._cfg import config
 from ._templates import create_params_from_template, list_templates, write_template
 from .drivers.coeval import Coeval, generate_coeval, run_coeval
 from .drivers.lightcone import LightCone, generate_lightcone, run_lightcone
+from .drivers.single_field import interp_halo_boxes
 from .exceptions import InfinityOrNaNError, ParameterError
 from .inputs import (
     AstroOptions,
@@ -38,6 +42,8 @@ from .inputs import (
 )
 from .lightconers import AngularLightconer, Lightconer, RectilinearLightconer
 from .models.brightness import brightness_temperature
+from .models.halobox import compute_halo_grid
+from .models.halos import determine_halo_catalog, perturb_halo_catalog
 from .models.ics import compute_initial_conditions
 from .models.ionization import compute_ionization_field
 from .models.perturb import perturb_field
@@ -46,9 +52,11 @@ from .models.xray_source import compute_xray_source_field
 from .outputs import (
     BrightnessTemp,
     HaloBox,
+    HaloCatalog,
     InitialConditions,
     IonizedBox,
     PerturbedField,
+    PerturbedHaloCatalog,
     TsBox,
     XraySourceBox,
 )
@@ -62,6 +70,7 @@ __all__ = [
     "Coeval",
     "CosmoParams",
     "HaloBox",
+    "HaloCatalog",
     "InfinityOrNaNError",
     "InitialConditions",
     "InputParameters",
@@ -71,25 +80,30 @@ __all__ = [
     "MatterOptions",
     "ParameterError",
     "PerturbedField",
+    "PerturbedHaloCatalog",
     "RectilinearLightconer",
     "SimulationOptions",
     "TsBox",
     "XraySourceBox",
     "__version__",
     "brightness_temperature",
+    "compute_halo_grid",
     "compute_initial_conditions",
     "compute_ionization_field",
     "compute_spin_temperature",
     "compute_xray_source_field",
     "config",
     "create_params_from_template",
+    "determine_halo_catalog",
     "generate_coeval",
     "generate_lightcone",
     "get_logspaced_redshifts",
     "interop",
+    "interp_halo_boxes",
     "lightconers",
     "list_templates",
     "perturb_field",
+    "perturb_halo_catalog",
     "register_class_transfer",
     "run_coeval",
     "run_lightcone",

@@ -1,15 +1,19 @@
 """Coeval cubes: the snapshot pipeline, evolved down the node ladder.
 
 Equivalent of reference drivers/coeval.py:521-992 (`generate_coeval` /
-`run_coeval`), following py21cmfast_tpu/drivers/coeval.py without the cache
-and the halo chain: the ICs are computed once, then the union of the node
-redshifts and the requested ones is visited highest first.  Each node runs
-perturb -> [HaloBox] -> Ts -> prefetch of the next node's tables -> ionize
--> Tb; the ionized box and the spin-temperature state are handed to the next
-node, and only the requested redshifts are yielded.  With SOURCE_MODEL
-'L-INTEGRAL' each node's HaloBox feeds ionization and, trimmed to the grids
-the shells read, a history from which the XraySourceBox of the Ts step is
-built.
+`run_coeval`), following py21cmfast_tpu/drivers/coeval.py without the cache:
+the ICs are computed once, then the union of the node redshifts and the
+requested ones is visited highest first.  Each node runs perturb ->
+[HaloBox] -> Ts -> prefetch of the next node's tables -> ionize -> Tb; the
+ionized box and the spin-temperature state are handed to the next node, and
+only the requested redshifts are yielded.  With a Lagrangian source model
+each node's HaloBox feeds ionization and, trimmed to the grids the shells
+read, a history from which the XraySourceBox of the Ts step is built: the
+fixed grids of SOURCE_MODEL 'L-INTEGRAL', or with a halo sampler
+('CHMF-SAMPLER', 'DEXM-ESF') the node's halo catalog, perturbed and
+gridded.  The catalogs are sampled before the scroll, ascending in z
+(reference evolve_halos, coeval.py:435), and wait on the host until their
+node.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from ..exceptions import check_nonfinite
 from ..inputs import InputParameters
 from ..models import ics as ics_module
 from ..models import halobox as halobox_module
+from ..models import halos as halos_module
 from ..models import ionization, perturb, spintemp, xray_source
 from ..models.brightness import brightness_temperature
 from ..models.hmf import set_scaling_constants
@@ -116,10 +121,11 @@ def generate_coeval(
     if cache is not None:
         not_in_slice("the output cache", 16)
     ao = inputs.astro_options
+    mo = inputs.matter_options
     perturb.check_inputs(inputs)
     ionization.check_inputs(inputs)
-    if ao.USE_TS_FLUCT:
-        spintemp.check_inputs(inputs)
+    if mo.source_model_uses_halo_sampler:
+        halos_module.check_inputs(inputs)
     out_redshifts = [float(z) for z in np.atleast_1d(np.asarray(out_redshifts))]
     all_z = _required_redshifts(inputs, out_redshifts)
     if not all_z:
@@ -130,7 +136,20 @@ def generate_coeval(
     if initial_conditions is None:
         initial_conditions = ics_module.compute_initial_conditions(inputs, device=dev)
 
-    lagrangian = inputs.matter_options.SOURCE_MODEL == "L-INTEGRAL"
+    lagrangian = mo.source_model_uses_lagrangian_grids
+    sampler = mo.source_model_uses_halo_sampler
+    # the halo chain, ascending in z: DexM and the grid sampler at the lowest
+    # node, then the progenitors of each catalog at the next node up; the
+    # catalogs of the nodes to come wait on the host
+    catalogs = {}
+    if sampler:
+        cat = None
+        for z in sorted(all_z):
+            cat = halos_module.determine_halo_catalog(
+                z, inputs, initial_conditions, previous_catalog=cat, device=dev)
+            catalogs[z] = cat.to("cpu")
+        del cat
+
     prev_ion: IonizedBox | None = None
     prev_pf: PerturbedField | None = None
     prev_z = None
@@ -140,7 +159,16 @@ def generate_coeval(
         pf = perturb.perturb_field(z, inputs, initial_conditions, device=dev)
 
         halobox = None
-        if lagrangian:
+        if sampler:
+            pt_halos = halos_module.perturb_halo_catalog(
+                z, inputs, initial_conditions, catalogs.pop(z).to(dev), device=dev)
+            halobox = halobox_module.compute_halo_grid(
+                z, inputs, pt_halos, previous_spin_temp=ts_state, previous_ionized_box=prev_ion,
+                lagrangian_delta=initial_conditions.lowres_density,
+                lowres_vcb=initial_conditions.lowres_vcb, ics=initial_conditions, device=dev,
+            )
+            del pt_halos
+        elif lagrangian:
             mt_a_grid = mt_m_grid = None
             if ao.USE_MINI_HALOS:
                 mt_a_grid, mt_m_grid = halobox_module._mcrit_grids(

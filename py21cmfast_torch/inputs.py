@@ -820,11 +820,10 @@ def _cached_cosmology(cosmo_params: CosmoParams, ps_int: int, _v: int = 0,
             raise ValueError(
                 "POWER_SPECTRUM='CLASS' needs transfer tables for a "
                 "non-default cosmology: call "
-                "py21cmfast_tpu.register_class_transfer(k, T[, k_vcb, T_vcb]) "
-                "with the output of a CLASS run, or compute tables without "
-                "classy via py21cmfast_tpu.cosmology.boltzmann."
-                "generate_transfer_tables(cosmo_params) (minutes of runtime; "
-                "accuracy documented on that function)"
+                "py21cmfast_torch.register_class_transfer(k, T[, k_vcb, T_vcb]) "
+                "with the output of a CLASS run (the in-house Boltzmann solver "
+                "that computes them without classy is not ported to "
+                "py21cmfast_torch yet: ROADMAP Queue 1 item 16)"
             )
     cosmo = cosmo_params.cosmology(power_spectrum=ps_int, transfer_table=table,
                                    vcb_suppression=uses_vcb)

@@ -27,9 +27,11 @@ from .inputs import (
 from .outputs import (
     BrightnessTemp,
     HaloBox,
+    HaloCatalog,
     InitialConditions,
     IonizedBox,
     PerturbedField,
+    PerturbedHaloCatalog,
     TsBox,
     XraySourceBox,
 )
@@ -43,6 +45,8 @@ __all__ = [
     "ts_box_from_numpy",
     "halobox_from_numpy",
     "xray_source_box_from_numpy",
+    "halo_catalog_from_numpy",
+    "perturbed_halo_catalog_from_numpy",
     "coeval_from_numpy",
 ]
 
@@ -108,6 +112,35 @@ def halobox_from_numpy(arrays: dict, device="cuda") -> HaloBox:
 
 def xray_source_box_from_numpy(arrays: dict, device="cuda") -> XraySourceBox:
     return _struct_from_numpy(XraySourceBox, arrays, device)
+
+
+def _catalog_from_numpy(cls, arrays: dict, device):
+    """The first `n_halos` entries of each per-halo array (the JAX package's
+    catalogs may carry padding beyond them) as float32 tensors on `device`."""
+    dev = resolve_device(device)
+    n = int(arrays["n_halos"])
+
+    def take(name, shape):
+        a = np.array(arrays[name], dtype=np.float32)[:n]
+        return torch.as_tensor(a.reshape(shape), device=dev)
+
+    return cls(
+        redshift=np.float32(arrays["redshift"]),
+        halo_masses=take("halo_masses", (n,)),
+        halo_coords=take("halo_coords", (n, 3)),
+        star_rng=take("star_rng", (n,)),
+        sfr_rng=take("sfr_rng", (n,)),
+        xray_rng=take("xray_rng", (n,)),
+        n_halos=n,
+    )
+
+
+def halo_catalog_from_numpy(arrays: dict, device="cuda") -> HaloCatalog:
+    return _catalog_from_numpy(HaloCatalog, arrays, device)
+
+
+def perturbed_halo_catalog_from_numpy(arrays: dict, device="cuda") -> PerturbedHaloCatalog:
+    return _catalog_from_numpy(PerturbedHaloCatalog, arrays, device)
 
 
 def coeval_from_numpy(arrays: dict, device="cuda") -> Coeval:

@@ -558,10 +558,7 @@ def _get_sigma_table(inputs: InputParameters):
 
 def check_inputs(inputs: InputParameters) -> None:
     """Raise NotImplementedError for ionization options outside the port."""
-    mo = inputs.matter_options
     ao = inputs.astro_options
-    if mo.source_model_uses_halo_sampler:
-        not_in_slice(f"SOURCE_MODEL={mo.SOURCE_MODEL!r}", 13)
     if ao.PHOTON_CONS_TYPE != "NO-PHOTONCONS":
         not_in_slice(f"PHOTON_CONS_TYPE={ao.PHOTON_CONS_TYPE!r}", 14)
 

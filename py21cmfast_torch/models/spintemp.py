@@ -757,13 +757,6 @@ def _init_first_ts(redshift, inputs, perturbed_field, device="cuda"):
     return box, box
 
 
-def check_inputs(inputs: InputParameters) -> None:
-    """Raise NotImplementedError for spin-temperature options outside the port."""
-    mo = inputs.matter_options
-    if mo.source_model_uses_halo_sampler:
-        not_in_slice(f"SOURCE_MODEL={mo.SOURCE_MODEL!r}", 13)
-
-
 def _norm_group(*arrs):
     """Scale a group of folded tables to peak 1.0; returns the scaled arrays
     and the peak.  Groups that add into the same accumulator share one scale."""
@@ -1267,7 +1260,6 @@ def compute_spin_temperature(
     its filtered shells replace the density-conditioned SFRD.  The fields are
     moved to `device` if they live elsewhere."""
     dev = resolve_device(device)
-    check_inputs(inputs)
     if mesh is not None:
         not_in_slice("a device mesh", 17)
     so = inputs.simulation_options

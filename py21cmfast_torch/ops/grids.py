@@ -11,6 +11,12 @@ import numpy as np
 import torch
 
 
+def true_div(x, divisor):
+    """x / divisor, a true float32 division on every device: divided by a
+    host scalar, CUDA multiplies by its reciprocal instead."""
+    return x / torch.tensor(divisor, dtype=x.dtype, device=x.device)
+
+
 def k_axes(shape, box_lens, device):
     """Return (kx, ky, kz) 1D float32 tensors for an rfftn half-space of a real box."""
     nx, ny, nz = shape

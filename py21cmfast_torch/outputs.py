@@ -139,3 +139,31 @@ class XraySourceBox(_Struct):
     # annulus (SpinTemperatureBox.c:775-783)
     filtered_sfr_lw: torch.Tensor | None = None
     filtered_sfr_mini_lw: torch.Tensor | None = None
+
+
+@dataclass(frozen=True)
+class HaloCatalog(_Struct):
+    """Discrete halo catalog (HaloCatalog.c:38), compacted: every entry is a
+    halo, `n_halos == len(halo_masses)`.  Masses in Msun, Lagrangian
+    coordinates (n, 3) in comoving Mpc, and the three standard-normal draws
+    of each halo's stellar, SFR and X-ray scatter, correlated across
+    snapshots (Stochasticity.c set_prop_rng:210-232)."""
+
+    redshift: np.float32
+    halo_masses: torch.Tensor  # (n,)
+    halo_coords: torch.Tensor  # (n, 3)
+    star_rng: torch.Tensor
+    sfr_rng: torch.Tensor
+    xray_rng: torch.Tensor
+    n_halos: int
+
+    def to(self, device) -> "HaloCatalog":
+        """The catalog with its tensors on `device`."""
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name).to(device) for f in dataclasses.fields(self)
+            if isinstance(getattr(self, f.name), torch.Tensor)})
+
+
+@dataclass(frozen=True)
+class PerturbedHaloCatalog(HaloCatalog):
+    """Halos moved to their Eulerian positions (PerturbedHaloCatalog.c:25)."""

@@ -524,11 +524,14 @@ def test_interop_carries_halobox_and_source_box(chain):
 
 
 @pytest.mark.filterwarnings("ignore:R_BUBBLE_MAX")
-@pytest.mark.parametrize("name", ["simple", "const-zeta", "latest", "park19", "fixed-halos"])
+@pytest.mark.parametrize("name", ["simple", "const-zeta", "latest", "park19", "fixed-halos",
+                                  "defaults", "latest-discrete"])
 def test_templates_run(name):
     """The templates without minihalos (tests/test_torch_minihalos.py runs
     the minihalo ones) run by name through run_lightcone on the CPU (8³,
-    3 nodes) with finite boxes and cones."""
+    3 nodes) with finite boxes and cones; with Lagrangian sources (the
+    fixed grids, or the halo sampler of "defaults" and "latest-discrete")
+    run_coeval gives a HaloBox."""
     inp = t21.InputParameters.from_template(name, random_seed=1).evolve_input_structs(
         HII_DIM=8, DIM=16, BOX_LEN=16.0, R_BUBBLE_MAX=5.0, N_STEP_TS=6, ZPRIME_STEP_FACTOR=1.3,
     ).with_logspaced_redshifts(8.0, 12.0)
@@ -536,7 +539,10 @@ def test_templates_run(name):
     assert all(np.isfinite(t.numpy()).all() for t in lc.lightcones.values())
     xh = lc.global_quantities["neutral_fraction"]
     assert np.isfinite(xh).all() and xh[-1] < xh[0]
-    if inp.matter_options.SOURCE_MODEL == "L-INTEGRAL":
+    if inp.matter_options.source_model_uses_lagrangian_grids:
         out = t21.run_coeval(inp, 8.0, device="cpu")
         assert out.halobox is not None and float(out.halobox.halo_sfr.min()) >= 0.0
-        assert np.isfinite(out.spin_temp.spin_temperature.numpy()).all()
+        if inp.matter_options.source_model_uses_halo_sampler:
+            assert float(out.halobox.count.sum()) > 0.0
+        if inp.astro_options.USE_TS_FLUCT:
+            assert np.isfinite(out.spin_temp.spin_temperature.numpy()).all()

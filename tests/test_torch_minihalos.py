@@ -445,13 +445,14 @@ def test_interop_carries_the_minihalo_state(eos21):
     assert isinstance(ion.mean_f_coll_MINI, np.float32)
 
 
-@pytest.mark.parametrize("name", ["minihalos", "EOS21", "Qin20"])
+@pytest.mark.parametrize("name", ["minihalos", "EOS21", "Qin20", "minihalos-discrete"])
 def test_minihalo_templates_run(name):
     """Every minihalo template of the repo runs through run_lightcone on the
     CPU (8³, 3 nodes; run_coeval of minihalos is tests/test_torch_slice.py's
     and test_torch_scroll.py's) with finite outputs and the minihalo state
     filled at the last node ("Munoz21" itself names "minihalos" in the
-    manifest; its own file is reached as "EOS21")."""
+    manifest; its own file is reached as "EOS21"): the Nion stacks, or with
+    the halo sampler of "minihalos-discrete" the HaloBox's MCG grids."""
     inp = t21.InputParameters.from_template(name, random_seed=1).evolve_input_structs(
         HII_DIM=8, DIM=16, BOX_LEN=16.0, R_BUBBLE_MAX=5.0, N_STEP_TS=6, ZPRIME_STEP_FACTOR=1.3,
     ).with_logspaced_redshifts(8.0, 12.0)
@@ -461,8 +462,13 @@ def test_minihalo_templates_run(name):
         last = cv if z is not None else last
     assert last.redshift == 8.0 and np.isfinite(last.brightness_temp.numpy()).all()
     assert float(last.spin_temp.J_21_LW.min()) > 0.0
-    assert float(last.ionized_box.log10_Mturnover_MINI_ave) > 5.0
-    assert last.ionized_box.unnormalised_nion_mini.shape[1:] == (8, 8, 8)
+    if inp.matter_options.source_model_uses_halo_sampler:
+        assert float(last.halobox.count.sum()) > 0.0
+        assert float(last.halobox.halo_sfr_mini.max()) > 0.0
+        assert float(last.halobox.log10_Mcrit_MCG_ave) > 5.0
+    else:
+        assert float(last.ionized_box.log10_Mturnover_MINI_ave) > 5.0
+        assert last.ionized_box.unnormalised_nion_mini.shape[1:] == (8, 8, 8)
     vcb = last.initial_conditions.lowres_vcb
     assert (vcb is not None) == (inp.matter_options.V_CB_MODEL == "FLUCTS")
     assert all(np.isfinite(t.numpy()).all() for t in lc.lightcones.values())

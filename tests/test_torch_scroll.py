@@ -193,11 +193,16 @@ def test_no_evolution_means_no_coupling(calls):
         (dict(USE_TS_FLUCT=True, SOURCE_MODEL="L-INTEGRAL"), None),
         (dict(USE_TS_FLUCT=True, HEAT_FILTER="SHARP-K"), None),
         (dict(RECOMB_MODEL="INHOMOGENEOUS", IONISE_ENTIRE_SPHERE=True, R_BUBBLE_MAX=5.0), None),
-        (dict(USE_TS_FLUCT=True, SOURCE_MODEL="CHMF-SAMPLER"), 13),
+        (dict(USE_TS_FLUCT=True, SOURCE_MODEL="CHMF-SAMPLER"), None),
+        (dict(USE_TS_FLUCT=True, SOURCE_MODEL="CHMF-SAMPLER", SAMPLE_METHOD="NUMBER-LIMITED",
+              USE_MINI_HALOS=True), None),
+        (dict(USE_TS_FLUCT=True, SOURCE_MODEL="CHMF-SAMPLER", SAMPLE_METHOD="PARTITION"), 13),
         (dict(USE_TS_FLUCT=True, PHOTON_CONS_TYPE="Z-PHOTONCONS"), 14),
     ],
+    # the CHMF-SAMPLER case keeps the id it had while the sampler raised
     ids=["minihalos", "L-INTEGRAL", "sharp-k-heat-filter-runs", "IONISE_ENTIRE_SPHERE",
-         "CHMF-SAMPLER-raises", "Z-PHOTONCONS-raises"],
+         "CHMF-SAMPLER-raises", "CHMF-SAMPLER+NUMBER-LIMITED+minihalos", "PARTITION-raises",
+         "Z-PHOTONCONS-raises"],
 )
 def test_evolving_options_outside_the_slice_raise(over, item):
     inp = _small_inputs(**over).with_logspaced_redshifts(8.0, 12.0)
@@ -206,8 +211,8 @@ def test_evolving_options_outside_the_slice_raise(over, item):
         assert np.isfinite(out.brightness_temp.numpy()).all()
         if out.spin_temp is not None:
             assert np.isfinite(out.spin_temp.spin_temperature.numpy()).all()
-        if inp.matter_options.SOURCE_MODEL == "L-INTEGRAL":
-            # the fixed-grid sources: a HaloBox at every node
+        if inp.matter_options.source_model_uses_lagrangian_grids:
+            # the fixed-grid or sampled sources: a HaloBox at every node
             assert np.isfinite(out.halobox.halo_sfr.numpy()).all()
             assert float(out.halobox.halo_xray.max()) > 0.0
         if inp.astro_options.IONISE_ENTIRE_SPHERE:
@@ -216,8 +221,13 @@ def test_evolving_options_outside_the_slice_raise(over, item):
             # the minihalo state is carried down the node ladder
             assert np.isfinite(out.spin_temp.J_21_LW.numpy()).all()
             assert float(out.spin_temp.J_21_LW.max()) > 0.0
-            assert out.ionized_box.unnormalised_nion_mini.ndim == 4
-            assert float(out.ionized_box.log10_Mturnover_MINI_ave) > 5.0
+            if inp.matter_options.source_model_uses_lagrangian_grids:
+                # the MCG sources come with the HaloBox
+                assert float(out.halobox.halo_sfr_mini.max()) > 0.0
+                assert float(out.halobox.log10_Mcrit_MCG_ave) > 5.0
+            else:
+                assert out.ionized_box.unnormalised_nion_mini.ndim == 4
+                assert float(out.ionized_box.log10_Mturnover_MINI_ave) > 5.0
         return
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 item {item}"):
         t21.run_coeval(inp, 8.0, device="cpu")

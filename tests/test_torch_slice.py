@@ -254,7 +254,8 @@ def no_cuda():
     "call",
     ["compute_initial_conditions", "perturb_field", "compute_ionization_field",
      "brightness_temperature", "run_coeval", "interop", "run_lightcone",
-     "compute_xray_source_field", "compute_fixed_halo_grid"],
+     "compute_xray_source_field", "compute_fixed_halo_grid", "determine_halo_catalog",
+     "compute_halo_grid", "perturb_halo_catalog"],
 )
 def test_entry_points_default_to_cuda(no_cuda, call):
     """Called without device=, an entry point asks for the card and raises
@@ -272,18 +273,25 @@ def test_entry_points_default_to_cuda(no_cuda, call):
         "compute_xray_source_field": lambda: t21.compute_xray_source_field(8.0, inp, []),
         "compute_fixed_halo_grid": lambda: compute_fixed_halo_grid(
             8.0, inp.evolve_input_structs(SOURCE_MODEL="L-INTEGRAL"), None),
+        "determine_halo_catalog": lambda: t21.determine_halo_catalog(
+            8.0, inp.evolve_input_structs(SOURCE_MODEL="CHMF-SAMPLER"), None),
+        "compute_halo_grid": lambda: t21.compute_halo_grid(
+            8.0, inp.evolve_input_structs(SOURCE_MODEL="CHMF-SAMPLER"), None),
+        "perturb_halo_catalog": lambda: t21.perturb_halo_catalog(8.0, inp, None, None),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[call]()
 
 
-# options that once raised here and run since the minihalo slice and the
-# fixed-grid source slice
+# options that once raised here and run since the minihalo slice, the
+# fixed-grid source slice and the discrete-halo slice
 RUN_ON_CPU = (
     dict(USE_TS_FLUCT=True, USE_MINI_HALOS=True),
+    dict(USE_TS_FLUCT=True, RECOMB_MODEL="HOMOGENEOUS", SOURCE_MODEL="DEXM-ESF"),
     dict(USE_MINI_HALOS=True),
     dict(V_CB_MODEL="FLUCTS"),
     dict(SOURCE_MODEL="L-INTEGRAL"),
+    dict(SOURCE_MODEL="CHMF-SAMPLER"),
     dict(IONISE_ENTIRE_SPHERE=True),
 )
 
@@ -296,6 +304,8 @@ RUN_ON_CPU = (
         dict(USE_MINI_HALOS=True),
         dict(SOURCE_MODEL="L-INTEGRAL"),
         dict(SOURCE_MODEL="CHMF-SAMPLER"),
+        dict(SOURCE_MODEL="CHMF-SAMPLER", SAMPLE_METHOD="PARTITION"),
+        dict(SOURCE_MODEL="DEXM-ESF", SAMPLE_METHOD="BINARY-SPLIT"),
         dict(PHOTON_CONS_TYPE="Z-PHOTONCONS"),
         dict(DIM=20),
         dict(V_CB_MODEL="FLUCTS"),
@@ -304,9 +314,11 @@ RUN_ON_CPU = (
     ids=lambda d: ",".join(f"{k}={v}" for k, v in d.items()),
 )
 def test_options_outside_the_slice_raise(over):
-    """Options outside the port raise; the minihalo and v_cb options (ROADMAP
-    Queue 1 item 11), L-INTEGRAL (item 12) and IONISE_ENTIRE_SPHERE (item 6)
-    now run on the CPU and give finite boxes."""
+    """Options outside the port raise (the PARTITION and BINARY-SPLIT
+    progenitor samplers name item 13); the minihalo and v_cb options (ROADMAP
+    Queue 1 item 11), L-INTEGRAL (item 12), IONISE_ENTIRE_SPHERE (item 6) and
+    the halo samplers CHMF-SAMPLER and DEXM-ESF (item 13) now run on the CPU
+    and give finite boxes."""
     inp = t21.InputParameters(random_seed=1).evolve_input_structs(
         HII_DIM=8, DIM=16, BOX_LEN=16.0, SOURCE_MODEL="E-INTEGRAL").evolve_input_structs(**over)
     if over in RUN_ON_CPU:
@@ -317,10 +329,14 @@ def test_options_outside_the_slice_raise(over):
         if inp.astro_options.USE_MINI_HALOS:
             assert float(ion.log10_Mturnover_MINI_ave) > 5.0
         if over.get("USE_TS_FLUCT"):
-            assert np.isfinite(out.spin_temp.J_21_LW.numpy()).all()
-        if over.get("SOURCE_MODEL") == "L-INTEGRAL":
+            assert np.isfinite(out.spin_temp.spin_temperature.numpy()).all()
+            if inp.astro_options.USE_MINI_HALOS:
+                assert np.isfinite(out.spin_temp.J_21_LW.numpy()).all()
+        if over.get("SOURCE_MODEL") in ("L-INTEGRAL", "CHMF-SAMPLER", "DEXM-ESF"):
             assert np.isfinite(out.halobox.n_ion.numpy()).all()
             assert float(out.halobox.n_ion.max()) > 0.0
+        if over.get("SOURCE_MODEL") in ("CHMF-SAMPLER", "DEXM-ESF"):
+            assert float(out.halobox.count.sum()) > 0.0
         vcb = out.initial_conditions.lowres_vcb
         assert (vcb is not None) == (over.get("V_CB_MODEL") == "FLUCTS")
         if vcb is not None:

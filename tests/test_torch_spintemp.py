@@ -26,6 +26,7 @@ import torch
 from test_torch_ics import jax_inputs, numpy_grf, port_inputs
 
 from py21cmfast_torch import interop
+from py21cmfast_torch.outputs import XraySourceBox
 from py21cmfast_torch.models import heating as theat
 from py21cmfast_torch.models import lya_heating as tlya
 from py21cmfast_torch.models import spintemp as tsp
@@ -347,19 +348,31 @@ def test_first_node_and_z_heat_max_give_the_initial_state(chain):
 
 @pytest.mark.parametrize(
     "kwargs, over, match",
-    [(dict(source_box=object()), dict(SOURCE_MODEL="CHMF-SAMPLER"), "item 13"),
+    [(dict(source_box="empty"), dict(SOURCE_MODEL="CHMF-SAMPLER"), None),
      (dict(mesh=object()), dict(), "item 17")],
     ids=["source_box", "mesh"],
 )
 def test_arguments_outside_the_slice_raise(chain, kwargs, over, match):
     """A device mesh still raises; a source box runs for the fixed-grid
-    sources (tests/test_torch_fixed_halos.py) and raises for the halo
-    sampler's."""
-    nd = chain["nodes"][1]
+    sources (tests/test_torch_fixed_halos.py) and, since the discrete-halo
+    slice, for the halo sampler's (tests/test_torch_halos.py): here a box
+    with no sources in any shell gives a finite TsBox."""
+    nd, prev = chain["nodes"][2], chain["nodes"][1]
     pf = interop.perturbed_field_from_numpy(_numpy(nd["pf"]), "cpu")
     inputs = chain["tinp"].evolve_input_structs(**over) if over else chain["tinp"]
-    with pytest.raises(NotImplementedError, match=match):
-        tsp.compute_spin_temperature(nd["z"], inputs, pf, device="cpu", **kwargs)
+    if match is not None:
+        with pytest.raises(NotImplementedError, match=match):
+            tsp.compute_spin_temperature(nd["z"], inputs, pf, device="cpu", **kwargs)
+        return
+    n_shells = len(tsp.setup_z_edges(nd["z"], inputs).R)
+    shells = torch.zeros((n_shells,) + inputs.simulation_options.lowres_shape)
+    box = XraySourceBox(redshift=np.float32(nd["z"]), filtered_sfr=shells,
+                        filtered_xray=shells)
+    ts, _ = tsp.compute_spin_temperature(
+        nd["z"], inputs, pf, prev_state=interop.ts_box_from_numpy(_numpy(prev["ts"]), "cpu"),
+        prev_redshift=prev["z"], source_box=box, device="cpu")
+    assert np.isfinite(ts.spin_temperature.numpy()).all()
+    assert float(ts.kinetic_temp_neutral.min()) > 0.0
 
 
 def test_trilerp_matches_jax():
