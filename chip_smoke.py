@@ -43,6 +43,13 @@ Phases, in order; any failure raises and the script exits non-zero:
      (identical keep masks and centres, masses within 1e-6); then the
      latest-discrete and minihalos-discrete lightcones, 5 nodes, as in 4f
      with equal halo counts at every node;
+  4h. the slice of the PARTITION and BINARY-SPLIT samplers, photon
+     conservation and the non-integer perturb at golden size, card against
+     CPU: the two progenitor cores fed one set of CPU-generator draws; the
+     Z-PHOTONCONS calibration of both devices on one realization (the same
+     z grid, the deltaz curve) and its 5-node Ts lightcone per node and
+     cone; the ALPHA- and F-PHOTONCONS fits and coevals; a coeval at
+     DIM/HII_DIM = 2.5 (the scatter route, no kernel launch);
   5. the first main path: run_coeval of the simple+size-medium template
      (HII_DIM=128, DIM=384, 256 Mpc) at z=10 and z=8, with every kernel's
      launch count zeroed just before and read just after;
@@ -85,6 +92,19 @@ Phases, in order; any failure raises and the script exits non-zero:
      and the node nearest z=8 by stage (perturb_halo_catalog, the halo
      properties, the halo CIC with CUDA-event times, the sub-sampler grids,
      the XraySourceBox, Ts, ionize, Tb).
+  13. the headline lightcone of phase 9 under Z-PHOTONCONS (run right after
+     phase 9, from its ICs): the calibration's coevals, z range and wall,
+     seconds per node, <xH> and <Tb> at z = 8, 6, 5 beside phase 9's, peak
+     memory, one deposit launch a node and a calibration step;
+  14. generate_coeval of the latest-discrete template at phase 12's box
+     down to z=8, once with PARTITION and once with BINARY-SPLIT
+     progenitors: the catalog chain's wall and parts, the halo counts, the
+     seconds per node, the first progenitor step's mass octaves against the
+     conditional MF, the binary split's spilled rows and force-saved
+     branches;
+  15. run_global_evolution (the 0-D history) on the headline's inputs on
+     the card against the same run on the CPU, which runs in a process of
+     its own beside the card's phases from the start.
 The line before the last is a JSON object of kernel numbers; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero and
 prints no result.
@@ -92,6 +112,7 @@ prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -438,11 +459,14 @@ def kernel_phase():
 def _card_vs_cpu_coeval(label, nodes=False, **over):
     """A golden-size coeval on the card against the CPU, both from the same
     hires density (the two generators draw different noise).  With `nodes`
-    the coeval evolves down the golden ladder (25 -> 10.5, 5 nodes)."""
+    the coeval evolves down the golden ladder (25 -> 10.5, 5 nodes).  The
+    deposit kernel is launched once a node at an integer DIM/HII_DIM and
+    never at another ratio (the scatter route)."""
     import py21cmfast_torch as p21
+    from py21cmfast_torch.models import perturb
     from py21cmfast_torch.ops import deposit
 
-    inputs = p21.InputParameters(random_seed=SEED).evolve_input_structs(**GOLDEN_SIZE, **over)
+    inputs = p21.InputParameters(random_seed=SEED).evolve_input_structs(**{**GOLDEN_SIZE, **over})
     if nodes:
         inputs = inputs.with_logspaced_redshifts(10.5, 25.0)
     n_nodes = max(1, len(inputs.node_redshifts))
@@ -460,9 +484,11 @@ def _card_vs_cpu_coeval(label, nodes=False, **over):
     cpu = p21.run_coeval(inputs, 10.5, initial_conditions=ics_cpu, device="cpu")
     launches = deposit.cic_deposit_swept.launches
     gpu = p21.run_coeval(inputs, 10.5, initial_conditions=ics_gpu)
-    if deposit.cic_deposit_swept.launches != launches + n_nodes:
+    expected = n_nodes if perturb.uses_swept_deposit(inputs) else 0
+    if deposit.cic_deposit_swept.launches != launches + expected:
         raise AssertionError(
-            f"{label}: the coeval on the card did not launch the deposit kernel once per node")
+            f"{label}: the coeval on the card launched the deposit kernel "
+            f"{deposit.cic_deposit_swept.launches - launches} times, expected {expected}")
     dens_c, dens_g = cpu.density, gpu.density.cpu()
     d_err = (dens_c - dens_g).abs().max().item()
     xh_c, xh_g = cpu.neutral_fraction, gpu.neutral_fraction.cpu()
@@ -1520,8 +1546,260 @@ def discrete_small_phase():
         _card_vs_cpu_lagrangian("discrete-small", label, inputs)
 
 
+# phase 4h: photon conservation at golden size.  The Z-PHOTONCONS lightcone
+# takes the golden Ts + INHOMOGENEOUS options with R_BUBBLE_MAX=15, and the
+# ALPHA/F coevals its box without Ts and recombinations: the three calibrate
+# on one calibration box (Ts, recombinations and the correction off,
+# R_BUBBLE_MAX=15), run once on each device
+PHOTONCONS_SMALL = dict(USE_TS_FLUCT=True, RECOMB_MODEL="INHOMOGENEOUS", R_BUBBLE_MAX=15.0)
+# the mean xH at which the calibration's step changes (0.5, 0.15, 0.05)
+CALIBRATION_THRESHOLDS = (0.9, 0.3, 0.01)
+# the sampler cores' mass bounds, as the CPU tests hold the port to the JAX
+# package (tests/test_torch_samplers.py): the partition's masses; the binary
+# split's, sorted within each descendant, 99% within and all within
+PARTITION_MASS_REL = 2e-4
+SPLIT_MASS_REL_99, SPLIT_MASS_REL_MAX = 2e-5, 1e-2
+
+
+def _step_uniforms(shape, t):
+    """Step t's uniforms for every descendant (and slot), from a CPU
+    generator seeded by the step."""
+    import torch
+
+    return torch.rand(shape, generator=torch.Generator().manual_seed(SEED * 1000 + t))
+
+
+def _shared_sampler_draws():
+    """The partition's and the binary split's draw factories, drawing every
+    step's uniforms for the whole chunk on the CPU and handing each device
+    those of the rows (and slots) it asks for."""
+    def partition_rng(n, use_st, generator, dev):
+        def draw(t, rows):
+            full = _step_uniforms((10, n), t)
+            r = rows.cpu()
+            out = dict(u=full[0, r].clamp(min=1e-7), u1=full[1:5, r].clamp(min=1e-12),
+                       u2=full[5:9, r])
+            if use_st:
+                out["u_acc"] = full[9, r]
+            return {k: v.to(dev) for k, v in out.items()}
+        return draw
+
+    def split_rng(n, generator, dev):
+        def draw(t, rows, slots):
+            full = _step_uniforms((3, n, 64), t)[:, rows.cpu(), slots.cpu()]
+            return tuple(full[i].to(dev) for i in range(3))
+        return draw
+    return partition_rng, split_rng
+
+
+def sampler_cores_phase():
+    """Phase 4h, first part: the PARTITION (HMF 'ST') and BINARY-SPLIT
+    progenitor cores at golden size on the card against the CPU, both fed
+    one set of CPU-generator draws (`_shared_sampler_draws`): 20000
+    descendants of log-uniform mass in [1e8, 1e11] at z=10.5 sampled to
+    z=10.8.  Both: the progenitors of the same descendants in the same
+    order (the keep masks, compacted); the partition's masses within
+    PARTITION_MASS_REL, the binary split's sorted within each descendant
+    99% within SPLIT_MASS_REL_99 and all within SPLIT_MASS_REL_MAX."""
+    import torch
+
+    import py21cmfast_torch as p21
+    from py21cmfast_torch.models import halos
+
+    size = {k: v for k, v in GOLDEN_SIZE.items() if k != "SOURCE_MODEL"}
+    base = p21.InputParameters.from_template(DISCRETE_TEMPLATE, random_seed=SEED).evolve_input_structs(
+        **size, R_BUBBLE_MAX=15.0)
+    z, n = 10.5, 20000
+    rng = np.random.default_rng(SEED)
+    masses = torch.as_tensor(np.exp(rng.uniform(np.log(1e8), np.log(1e11), n)).astype(np.float32))
+    originals = (halos._partition_rng, halos._binary_split_rng)
+    halos._partition_rng, halos._binary_split_rng = _shared_sampler_draws()
+    try:
+        for method, chunk in (("PARTITION", halos._partition_chunk),
+                              ("BINARY-SPLIT", halos._binary_split_chunk)):
+            inp = base.evolve_input_structs(SAMPLE_METHOD=method)
+            h = halos.progenitor_tables(z + 0.3, inp, z, float(masses.max()), inverse=False)
+            out = {}
+            for dev in ("cpu", "cuda"):
+                md = masses.to(dev)
+                cond_t, m_tgt, n_exp, _ = halos._descendant_conditions(inp, h, md)
+                (rows, m), t = _sync_time(lambda: chunk(inp, h, md, cond_t, m_tgt, n_exp, None, dev))
+                out[dev] = (rows.cpu(), m.cpu().double(), t)
+            (rc, mc, tc), (rg, mg, tg) = out["cpu"], out["cuda"]
+            same = torch.equal(rc, rg)
+            if method == "PARTITION":
+                rel = ((mg - mc).abs() / mc).max().item() if same and mc.numel() else float("inf")
+                ok = same and rel <= PARTITION_MASS_REL
+                txt = (f"progenitors of the same descendants in the same order {same}, max mass "
+                       f"rel {rel:.2e} (limit {PARTITION_MASS_REL:.0e})")
+            else:
+                # each descendant's progenitors, sorted
+                sc, sg = (m[np.lexsort((m.numpy(), rc.numpy()))] for m in (mc, mg))
+                rel = (sg - sc).abs() / sc if same else torch.full((1,), float("inf"))
+                q99, top = (torch.quantile(rel, 0.99).item(), rel.max().item()) if rel.numel() else (0, 0)
+                ok = same and q99 <= SPLIT_MASS_REL_99 and top <= SPLIT_MASS_REL_MAX
+                txt = (f"progenitor counts a descendant identical {same}, sorted masses rel: 99% "
+                       f"{q99:.2e} (limit {SPLIT_MASS_REL_99:.0e}), max {top:.2e} (limit "
+                       f"{SPLIT_MASS_REL_MAX:.0e})")
+            print(f"[samplers-small] {method} core, {n} descendants z={z} -> {z + 0.3}: "
+                  f"{rc.numel()} progenitors; {txt}; {tg:.3f} s on the card, {tc:.3f} s on the CPU")
+            if not ok:
+                raise AssertionError(f"the {method} core on the card disagrees with the CPU")
+    finally:
+        halos._partition_rng, halos._binary_split_rng = originals
+
+
+@contextlib.contextmanager
+def _one_realization(cals):
+    """While the block runs, ICs asked for on the card without a density
+    take the CPU generator's, so that both devices' photon-conservation
+    calibrations run on one realization, and each device calibrates one
+    calibration box once (recorded in `cals` by device)."""
+    import torch
+
+    from py21cmfast_torch.models import ics as ics_module
+    from py21cmfast_torch.models import photoncons
+
+    compute_ics = ics_module.compute_initial_conditions
+    calibrate = photoncons.calibrate_photon_cons
+
+    def shared_ics(inputs, initial_density=None, *, device="cuda"):
+        if initial_density is None and torch.device(device).type == "cuda":
+            initial_density = compute_ics(inputs, device="cpu").hires_density.numpy()
+        return compute_ics(inputs, initial_density=initial_density, device=device)
+
+    def once(inputs, z_ana=None, q_ana=None, *, device="cuda"):
+        dev = torch.device(device).type
+        key = (dev, inputs.evolve_input_structs(
+            PHOTON_CONS_TYPE="NO-PHOTONCONS", USE_TS_FLUCT=False, RECOMB_MODEL="NONE",
+            R_BUBBLE_MAX=15.0 if inputs.astro_options.uses_recombination
+            else inputs.astro_params.R_BUBBLE_MAX).full_hash)
+        if key not in cals:
+            cals[key] = _sync_time(lambda: calibrate(inputs, z_ana, q_ana, device=device))
+        return cals[key][0]
+
+    ics_module.compute_initial_conditions = shared_ics
+    photoncons.calibrate_photon_cons = once
+    try:
+        yield
+    finally:
+        ics_module.compute_initial_conditions = compute_ics
+        photoncons.calibrate_photon_cons = calibrate
+
+
+def _same_states(label, states):
+    """The photon-conservation states of the card and the CPU: the same
+    calibration z grid; for the Z state each step's mean xH within 1e-3
+    (with its margin to the step thresholds) and the deltaz(xH) curve within
+    1e-2, for a fit its intercept and slope within 1e-2 of their values."""
+    c, g = states["cpu"], states["cuda"]
+    same_grid = np.array_equal(c.z_cal, g.z_cal)
+    txt = (f"calibration z grids identical {same_grid} ({len(c.z_cal)} steps, z {c.z_cal[0]:.3f} -> "
+           f"{c.z_cal[-1]:.3f})")
+    ok = same_grid
+    if hasattr(c, "xh_cal"):
+        xh_err = float(np.abs(c.xh_cal - g.xh_cal).max()) if same_grid else float("inf")
+        margin = min(float(np.abs(c.xh_cal - t).min()) for t in CALIBRATION_THRESHOLDS)
+        txt += (f", max |dxH| {xh_err:.2e} (limit 1e-3), the CPU's xH {margin:.2e} from the "
+                f"nearest step threshold")
+        ok &= xh_err <= 1e-3
+    if hasattr(c, "deltaz_vals"):
+        dz = (float(np.abs(c.deltaz_vals - g.deltaz_vals).max())
+              if c.deltaz_vals.shape == g.deltaz_vals.shape else float("inf"))
+        txt += f", deltaz(xH) max |card - CPU| {dz:.2e} (limit 1e-2)"
+        ok &= dz <= 1e-2
+    else:
+        rel = [abs(getattr(g, k) - getattr(c, k)) / abs(getattr(c, k)) for k in ("fit_yint", "fit_slope")]
+        txt += (f", fit {g.fit_yint:.6g} + {g.fit_slope:.6g} Q card vs {c.fit_yint:.6g} + "
+                f"{c.fit_slope:.6g} Q CPU (rel {rel[0]:.2e}, {rel[1]:.2e}; limit 1e-2)")
+        ok &= max(rel) <= 1e-2
+    print(f"[photoncons-small] {label}: {txt}")
+    if not ok:
+        raise AssertionError(f"{label}: the card's photon-conservation state disagrees with the CPU's")
+
+
+def photoncons_small_phase():
+    """Phase 4h, second part: golden-size photon conservation, card against
+    CPU, both calibrating on one realization (`_one_realization`): the
+    states (`_same_states`), then the 5-node Z-PHOTONCONS lightcone (Ts,
+    INHOMOGENEOUS) per node Ts, Tk, x_e (every cell within 1e-3 of its
+    value, the mean within 1e-4), xH (at most 1e-3 of the cells off by
+    1e-3) and Tb (at most 1e-3 of the cells off by 1e-4 of the maximum), then
+    the cones as in 4d; then the ALPHA- and F-PHOTONCONS coevals down the
+    same ladder as in phase 4."""
+    import py21cmfast_torch as p21
+    from py21cmfast_torch.drivers import coeval
+    from py21cmfast_torch.models import photoncons
+
+    label = "Z-PHOTONCONS lightcone"
+    cals = {}
+    with _one_realization(cals):
+        inputs = p21.InputParameters(random_seed=SEED).evolve_input_structs(
+            **GOLDEN_SIZE, **PHOTONCONS_SMALL, PHOTON_CONS_TYPE="Z-PHOTONCONS",
+        ).with_logspaced_redshifts(10.5, 25.0)
+        states = {dev: photoncons.setup_photon_cons(inputs, device=dev) for dev in ("cpu", "cuda")}
+        _same_states(label, states)
+        ics_cpu = p21.compute_initial_conditions(inputs, device="cpu")
+        ics_gpu = p21.compute_initial_conditions(inputs, initial_density=ics_cpu.hires_density.numpy())
+        runs, nodes = {}, {}
+        for dev, ics in (("cpu", ics_cpu), ("cuda", ics_gpu)):
+            lcr, written = _tracked_lightconer(inputs)
+            nodes[dev] = []
+            for z, cv, lc in p21.generate_lightcone(
+                    inputs, lightconer=lcr, initial_conditions=ics, device=dev):
+                if z is not None:
+                    nodes[dev].append((z, _minihalo_node(cv)[0]))
+            runs[dev] = (lc, written, _check_written(written, lcr, inputs, f"{label} on {dev}"))
+        ok = True
+        for (z, c), (_, g) in zip(nodes["cpu"], nodes["cuda"]):
+            worst = {}
+            for name in ("spin_temperature", "kinetic_temp_neutral", "xray_ionised_fraction"):
+                cc, gg = c[name], g[name]
+                worst[name] = ((gg - cc).abs() / cc.abs().clamp_min(1e-30)).max().item()
+                mean_rel = abs(gg.mean().item() - cc.mean().item()) / max(abs(cc.mean().item()), 1e-30)
+                ok &= worst[name] <= 1e-3 and mean_rel <= 1e-4
+            flipped = ((g["neutral_fraction"] - c["neutral_fraction"]).abs() > 1e-3).double().mean().item()
+            tb_c, tb_g = c["brightness_temp"], g["brightness_temp"]
+            share = ((tb_g - tb_c).abs() > 1e-4 * tb_c.abs().max()).double().mean().item()
+            ok &= flipped <= 1e-3 and share <= 1e-3
+            print(f"[photoncons-small] {label} z={z:.3f} (computed at z={states['cuda'].adjusted_redshift(z):.4f}"
+                  f" on the card, {states['cpu'].adjusted_redshift(z):.4f} on the CPU): <xH> "
+                  f"{g['neutral_fraction'].mean().item():.6f} card vs {c['neutral_fraction'].mean().item():.6f}"
+                  f" CPU; worst cell rel {{{', '.join(f'{k}: {v:.2e}' for k, v in worst.items())}}} "
+                  f"(limit 1e-3); xH flipped share {flipped:.2e}; Tb share off by > 1e-4 max {share:.2e}")
+        if not ok:
+            raise AssertionError(f"the golden-size {label}'s nodes on the card disagree with the CPU run")
+        _card_vs_cpu_cones(label, inputs, runs)
+
+        for pc in ("ALPHA-PHOTONCONS", "F-PHOTONCONS"):
+            over = dict(R_BUBBLE_MAX=15.0, PHOTON_CONS_TYPE=pc)
+            inp = p21.InputParameters(random_seed=SEED).evolve_input_structs(
+                **GOLDEN_SIZE, **over).with_logspaced_redshifts(10.5, 25.0)
+            # the states first, so that the coevals' deposit launches are their nodes'
+            _same_states(f"{pc} coeval", {dev: coeval.setup_photon_cons(inp, device=dev)
+                                          for dev in ("cpu", "cuda")})
+            _card_vs_cpu_coeval(pc, nodes=True, **over)
+    for (dev, _), (_, t) in cals.items():
+        print(f"[photoncons-small] the calibration on the {dev}: {t:.2f} s")
+    if len(cals) != 2:
+        raise AssertionError(f"expected one calibration box a device, got {len(cals)}")
+
+
+def slice_small_phase():
+    """Phase 4h: the samplers' cores, photon conservation and a perturb at
+    a non-integer DIM/HII_DIM (HII_DIM=24 with DIM=60, the scatter route, no
+    kernel launch) at golden size, on the card against the CPU."""
+    sampler_cores_phase()
+    photoncons_small_phase()
+    _card_vs_cpu_coeval("DIM/HII_DIM = 2.5", DIM=60)
+
+
 HEADLINE_SEED = 3
 HEADLINE_Z_END = 5.0
+# phases 10 and 11 run the headline's box and ladder down to z=8 only (72 of
+# its 92 nodes): the depth cut that keeps the whole script within its time
+# once phases 4h and 13-15 joined it
+CUT_Z_END = 8.0
 HEADLINE_BOX = dict(HII_DIM=256, DIM=768, BOX_LEN=384.0, Z_HEAT_MAX=35.0, ZPRIME_STEP_FACTOR=1.02,
                     MINIMIZE_MEMORY=True)
 
@@ -1541,23 +1819,23 @@ def _headline_inputs():
 def _minihalo_headline_inputs():
     """The Munoz21 template (minihalos, LW feedback, v_cb FLUCTS, USE_TS_FLUCT,
     inhomogeneous recombinations, SHARP-K, R_BUBBLE_MAX=50) at the headline's
-    box and node ladder."""
+    box and node ladder, down to CUT_Z_END."""
     import py21cmfast_torch as p21
 
     return p21.InputParameters.from_template(
         MINIHALO_TEMPLATE, random_seed=HEADLINE_SEED
-    ).evolve_input_structs(**HEADLINE_BOX).with_logspaced_redshifts(HEADLINE_Z_END)
+    ).evolve_input_structs(**HEADLINE_BOX).with_logspaced_redshifts(CUT_Z_END)
 
 
 def _fixed_halos_headline_inputs():
     """The fixed-halos template (L-INTEGRAL, USE_EXP_FILTER, CELL_RECOMB,
     USE_TS_FLUCT, inhomogeneous recombinations, R_BUBBLE_MAX=50) at the
-    headline's box and node ladder."""
+    headline's box and node ladder, down to CUT_Z_END."""
     import py21cmfast_torch as p21
 
     return p21.InputParameters.from_template(
         FIXED_HALOS_TEMPLATE, random_seed=HEADLINE_SEED
-    ).evolve_input_structs(**HEADLINE_BOX).with_logspaced_redshifts(HEADLINE_Z_END)
+    ).evolve_input_structs(**HEADLINE_BOX).with_logspaced_redshifts(CUT_Z_END)
 
 
 def _moved(struct, device):
@@ -1579,14 +1857,16 @@ def _without_stacks(ion):
     return dataclasses.replace(ion, unnormalised_nion=None, unnormalised_nion_mini=None)
 
 
-def lightcone_phase(kernels, inputs, ics, ics_s, tag, path, sample_z):
+def lightcone_phase(kernels, inputs, ics, ics_s, tag, path, sample_z, setup_launches=None):
     """A full-size lightcone through generate_lightcone with dvdr and RSDs,
     from ICs computed before (as bench.py hands them in); launch counts zeroed
-    just before and read just after (one deposit launch per node).  Then the
+    just before and read just after (one deposit launch per node, and
+    `setup_launches()` more where the run's setup deposits too).  Then the
     finalization's device-busy times and the stages of the nodes nearest each
     of `sample_z`, recomputed from the state the scroll handed them; that
     state is kept on the host meanwhile, so that it adds nothing to the run's
-    peak memory."""
+    peak memory.  Returns the nodes, their <xH> and <Tb>, the seconds of
+    each node and the peak memory."""
     import torch
 
     import py21cmfast_torch as p21
@@ -1650,7 +1930,7 @@ def lightcone_phase(kernels, inputs, ics, ics_s, tag, path, sample_z):
         setattr(rsds, attr, timed(name, originals[name]))
     xray_source.compute_xray_source_field = recorded_source
     halos.perturb_halo_catalog = recorded_catalog
-    seconds, xh, mini_means, samples, prev, lc = [], [], [], {}, None, None
+    seconds, xh, tb, mini_means, samples, prev, lc = [], [], [], [], {}, None, None
     try:
         torch.cuda.synchronize()
         t_start = t0 = time.perf_counter()
@@ -1669,6 +1949,7 @@ def lightcone_phase(kernels, inputs, ics, ics_s, tag, path, sample_z):
             if lagrangian and cv.halobox is None:
                 raise AssertionError(f"node {i}: no HaloBox")
             xh.append(cv.neutral_fraction.double().mean().item())
+            tb.append(cv.brightness_temp.double().mean().item())
             ion = cv.ionized_box
             if mini:
                 mini_means.append((cv.spin_temp.J_21_LW.double().mean().item(),
@@ -1704,8 +1985,9 @@ def lightcone_phase(kernels, inputs, ics, ics_s, tag, path, sample_z):
         k["launches"] = sum(k["launches_by_path"].values())
         if launches[k["name"]] < 1:
             raise AssertionError(f"the {tag} lightcone never launched {k['name']}")
-    if launches["cic_deposit_swept"] != len(nodes):
-        raise AssertionError(f"expected {len(nodes)} deposit launches in the {tag} lightcone, got {launches}")
+    expected = len(nodes) + (setup_launches() if setup_launches else 0)
+    if launches["cic_deposit_swept"] != expected:
+        raise AssertionError(f"expected {expected} deposit launches in the {tag} lightcone, got {launches}")
 
     later = np.array(seconds[1:])
     print(f"[{tag}] {len(nodes)} nodes in {total - t_final:.2f} s and the finalization "
@@ -1759,13 +2041,14 @@ def lightcone_phase(kernels, inputs, ics, ics_s, tag, path, sample_z):
         _node_stages(inputs, ics, s, f"{tag}-stages")
         del s
         torch.cuda.empty_cache()
+    return dict(nodes=nodes, xh=xh, tb=tb, seconds=seconds, peak=peak)
 
 
 def headline_phase(kernels, headline):
     """Phase 9: the headline lightcone from the ICs phase 3 computed; the
     stages of the node nearest z=8."""
     inputs, ics, ics_s = headline
-    lightcone_phase(kernels, inputs, ics, ics_s, "headline", "lightcone", (8.0,))
+    return lightcone_phase(kernels, inputs, ics, ics_s, "headline", "lightcone", (8.0,))
 
 
 def minihalo_headline_phase(kernels):
@@ -1860,37 +2143,24 @@ def _octave_expectation(inputs, z, h, edges):
     return -np.diff(above)
 
 
-def discrete_headline_phase(kernels):
-    """Phase 12, the sixth main path: the latest-discrete lightcone
-    (CHMF-SAMPLER, MASS-LIMITED progenitors, USE_TS_FLUCT, INHOMOGENEOUS)
-    at 128^3 / 384^3 in 192 Mpc down the headline's 92 nodes, from the
-    default CUDA generators, through lightcone_phase.  Its catalog chain is
-    timed whole (one synchronised wall) and by step (DexM, the grid sampler,
-    the progenitors of each node, the moves between the card and the host),
-    with the halo counts and the host
-    memory the waiting catalogs hold.  A statistical gate on the z=5 grid
-    sample: its count within 1% of the expected sum(n_exp) (plus one halo
-    per collapsed cell), and its count in each of 4 mass octaves from
-    SAMPLER_MIN_MASS within 5 sigma of the conditional MF's expectation."""
-    import resource
-
+@contextlib.contextmanager
+def _timed_chain():
+    """Time generate_coeval's catalog chain while the block runs: one
+    synchronised wall from the first catalog's start to the last one on the
+    host, and by step (DexM, the grid sampler, the progenitors of each node,
+    the moves between the card and the host), with the halo counts, the host
+    bytes of the waiting catalogs, the lowest node's grid sample and its
+    tables (`gate`), and the first progenitor step's descendant and
+    progenitor masses (`first_step`).  Yields the record."""
     import torch
 
-    import py21cmfast_torch as p21
     from py21cmfast_torch import outputs
     from py21cmfast_torch.models import halos
 
-    inputs = p21.InputParameters.from_template(
-        DISCRETE_TEMPLATE, random_seed=HEADLINE_SEED
-    ).evolve_input_structs(**DISCRETE_BOX).with_logspaced_redshifts(HEADLINE_Z_END)
-    so = inputs.simulation_options
-    if not inputs.matter_options.source_model_uses_halo_sampler:
-        raise AssertionError(f"{DISCRETE_TEMPLATE} does not sample halos")
-    ics, ics_s = _sync_time(lambda: p21.compute_initial_conditions(inputs))
-    torch.cuda.empty_cache()
-
-    walls = {"DexM": [], "grid sampler": [], "progenitors": [], "to card": [], "to host": []}
-    counts, host_bytes, gate, chain_wall = {}, [0], {}, {}
+    rec = dict(walls={"DexM": [], "grid sampler": [], "progenitors": [], "to card": [],
+                      "to host": []},
+               counts={}, host_bytes=[0], gate={}, chain_wall={}, first_step={})
+    walls, gate, chain_wall = rec["walls"], rec["gate"], rec["chain_wall"]
     originals = {name: getattr(halos, name) for name in (
         "dexm_halo_grid", "sample_halo_grid", "grid_sampler_tables", "_sample_progenitors",
         "determine_halo_catalog")}
@@ -1913,12 +2183,19 @@ def discrete_headline_phase(kernels):
         gate["masses"] = masses
         return masses, pos
 
+    def progenitors(z, inputs_, prev_cat, *a, **kw):
+        cat = timed("progenitors", originals["_sample_progenitors"])(z, inputs_, prev_cat, *a, **kw)
+        if not rec["first_step"]:
+            rec["first_step"].update(z_prev=float(prev_cat.redshift), z=z,
+                                     desc=prev_cat.halo_masses.cpu(), prog=cat.halo_masses.cpu())
+        return cat
+
     def determine(z, *a, **kw):
         if not chain_wall:
             torch.cuda.synchronize()
             chain_wall["start"] = time.perf_counter()
         cat = originals["determine_halo_catalog"](z, *a, **kw)
-        counts[z] = cat.n_halos
+        rec["counts"][z] = cat.n_halos
         return cat
 
     def moved(self, device):
@@ -1926,8 +2203,8 @@ def discrete_headline_phase(kernels):
         if torch.device(device).type == "cpu":
             walls["to host"].append(t)
             chain_wall["end"] = time.perf_counter()
-            host_bytes[0] += sum(v.numel() * v.element_size() for v in vars(out).values()
-                                 if isinstance(v, torch.Tensor))
+            rec["host_bytes"][0] += sum(v.numel() * v.element_size() for v in vars(out).values()
+                                        if isinstance(v, torch.Tensor))
         else:
             walls["to card"].append(t)
         return out
@@ -1935,33 +2212,72 @@ def discrete_headline_phase(kernels):
     halos.dexm_halo_grid = timed("DexM", originals["dexm_halo_grid"])
     halos.sample_halo_grid = sampled
     halos.grid_sampler_tables = tables
-    halos._sample_progenitors = timed("progenitors", originals["_sample_progenitors"])
+    halos._sample_progenitors = progenitors
     halos.determine_halo_catalog = determine
     outputs.HaloCatalog.to = moved
     try:
-        lightcone_phase(kernels, inputs, ics, ics_s, "latest-discrete", "discrete_lightcone", (8.0,))
+        yield rec
     finally:
         for name, fn in originals.items():
             setattr(halos, name, fn)
         outputs.HaloCatalog.to = catalog_to
 
+
+def _print_chain(tag, rec):
+    """Print a `_timed_chain` record: the chain's wall and its parts, the
+    halo counts and the host memory."""
+    import resource
+
+    walls, counts = rec["walls"], rec["counts"]
     zs = sorted(counts)
     z8 = min(zs, key=lambda z: abs(z - 8.0))
     prog = np.array(walls["progenitors"])
     parts = sum(sum(v) for k, v in walls.items() if k != "to card")
-    wall = chain_wall["end"] - chain_wall["start"]
-    print(f"[latest-discrete] catalog chain over {len(zs)} nodes: {wall:.2f} s wall before the "
+    wall = rec["chain_wall"]["end"] - rec["chain_wall"]["start"]
+    print(f"[{tag}] catalog chain over {len(zs)} nodes: {wall:.2f} s wall before the "
           f"scroll, from the first catalog's start to the last one on the host; its timed parts "
           f"{parts:.2f} s, the host work between them {wall - parts:.2f} s; DexM {sum(walls['DexM']):.3f} s, grid sampler {sum(walls['grid sampler']):.3f} s, "
           f"progenitors {prog.sum():.2f} s ({len(prog)} steps: median {np.median(prog):.4f} s, max "
           f"{prog.max():.4f} s), card -> host {sum(walls['to host']):.2f} s; host -> card at the "
           f"nodes {sum(walls['to card']):.2f} s (median {np.median(walls['to card']):.4f} s)")
-    print(f"[latest-discrete] halos at z={zs[0]}: {counts[zs[0]]}, at z={z8:.4f}: {counts[z8]}, at "
+    print(f"[{tag}] halos at z={zs[0]}: {counts[zs[0]]}, at z={z8:.4f}: {counts[z8]}, at "
           f"z={zs[-1]:.3f}: {counts[zs[-1]]}; {sum(counts.values())} in all {len(zs)} catalogs, which "
-          f"held {host_bytes[0] / 2**30:.3f} GiB of host memory while they waited; the process's "
+          f"held {rec['host_bytes'][0] / 2**30:.3f} GiB of host memory while they waited; the process's "
           f"peak resident memory {resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.3f} GiB")
+    return wall, prog
+
+
+def discrete_headline_phase(kernels):
+    """Phase 12, the sixth main path: the latest-discrete lightcone
+    (CHMF-SAMPLER, MASS-LIMITED progenitors, USE_TS_FLUCT, INHOMOGENEOUS)
+    at 128^3 / 384^3 in 192 Mpc down the headline's 92 nodes, from the
+    default CUDA generators, through lightcone_phase.  Its catalog chain is
+    timed whole (one synchronised wall) and by step (DexM, the grid sampler,
+    the progenitors of each node, the moves between the card and the host),
+    with the halo counts and the host
+    memory the waiting catalogs hold.  A statistical gate on the z=5 grid
+    sample: its count within 1% of the expected sum(n_exp) (plus one halo
+    per collapsed cell), and its count in each of 4 mass octaves from
+    SAMPLER_MIN_MASS within 5 sigma of the conditional MF's expectation."""
+    import torch
+
+    import py21cmfast_torch as p21
+
+    inputs = p21.InputParameters.from_template(
+        DISCRETE_TEMPLATE, random_seed=HEADLINE_SEED
+    ).evolve_input_structs(**DISCRETE_BOX).with_logspaced_redshifts(HEADLINE_Z_END)
+    so = inputs.simulation_options
+    if not inputs.matter_options.source_model_uses_halo_sampler:
+        raise AssertionError(f"{DISCRETE_TEMPLATE} does not sample halos")
+    ics, ics_s = _sync_time(lambda: p21.compute_initial_conditions(inputs))
+    torch.cuda.empty_cache()
+
+    with _timed_chain() as chain:
+        lightcone_phase(kernels, inputs, ics, ics_s, "latest-discrete", "discrete_lightcone", (8.0,))
+    _print_chain("latest-discrete", chain)
 
     # the statistical gate on the z=5 grid sample (the collapsed cells' halos last)
+    gate = chain["gate"]
     h, masses = gate["h"], gate["masses"]
     n_coll = int(h["collapsed"].sum())
     sampled_m = masses[: masses.numel() - n_coll]
@@ -1979,6 +2295,264 @@ def discrete_headline_phase(kernels):
         raise AssertionError("the z=5 grid sample fails its statistical gate")
 
 
+def photoncons_headline_phase(kernels, headline, base):
+    """Phase 13: the headline lightcone under Z-PHOTONCONS, from the ICs
+    phase 3 computed, launch counts zeroed just before and read just after:
+    one deposit launch a node and one a calibration step.  The calibration
+    (its coevals, their z range and wall, the analytic history beside it),
+    then <xH> and <Tb> at the nodes nearest z = 8, 6 and 5 beside phase 9's
+    (`base`), from the same seed and ICs."""
+    import torch
+
+    from py21cmfast_torch.drivers import coeval
+    from py21cmfast_torch.models import photoncons
+    from py21cmfast_torch.ops import deposit
+
+    inputs, ics, _ = headline
+    inputs = inputs.evolve_input_structs(PHOTON_CONS_TYPE="Z-PHOTONCONS")
+    setup, calibrate = coeval.setup_photon_cons, photoncons.calibrate_photon_cons
+    rec = {}
+
+    def timed_setup(inputs_, device="cuda"):
+        state, rec["setup"] = _sync_time(lambda: setup(inputs_, device=device))
+        return state
+
+    def timed_calibration(*a, **kw):
+        n0 = deposit.cic_deposit_swept.launches
+        out, rec["calibration"] = _sync_time(lambda: calibrate(*a, **kw))
+        rec["z_cal"], rec["launches"] = out[0], deposit.cic_deposit_swept.launches - n0
+        return out
+
+    coeval.setup_photon_cons = timed_setup
+    photoncons.calibrate_photon_cons = timed_calibration
+    try:
+        run = lightcone_phase(kernels, inputs, ics, headline[2], "z-photoncons",
+                              "photoncons_lightcone", (), setup_launches=lambda: len(rec["z_cal"]))
+    finally:
+        coeval.setup_photon_cons, photoncons.calibrate_photon_cons = setup, calibrate
+    z_cal = rec["z_cal"]
+    if rec["launches"] != len(z_cal):
+        raise AssertionError(f"the calibration launched the deposit {rec['launches']} times in "
+                             f"{len(z_cal)} steps")
+    state = setup(inputs)
+    later = np.array(run["seconds"][1:])
+    print(f"[z-photoncons] setup {rec['setup']:.2f} s on the first node: the calibration's "
+          f"{len(z_cal)} coevals (256^3 from 768^3 ICs of their own) z {z_cal[0]:.3f} -> "
+          f"{z_cal[-1]:.3f} in {rec['calibration']:.2f} s, the analytic history and deltaz the "
+          f"rest; then median {np.median(later):.4f} s a node (spread {later.min():.4f} - "
+          f"{later.max():.4f}); peak memory {run['peak']:.3f} GiB")
+    for z in (8.0, 6.0, 5.0):
+        i = int(np.argmin(np.abs(np.asarray(run["nodes"]) - z)))
+        zi = run["nodes"][i]
+        print(f"[z-photoncons] z={zi:.4f} (computed at z={state.adjusted_redshift(zi):.4f}): <xH> "
+              f"{run['xh'][i]:.6f}, <Tb> {run['tb'][i]:.5f} mK; without the correction (phase 9) "
+              f"<xH> {base['xh'][i]:.6f}, <Tb> {base['tb'][i]:.5f} mK")
+    if not (state.adjusted_redshift(8.0) < 8.0 and run["nodes"] == base["nodes"]):
+        raise AssertionError("Z-PHOTONCONS shifted no node of the headline lightcone")
+    torch.cuda.empty_cache()
+
+
+# phase 14: the PARTITION and BINARY-SPLIT progenitor samplers at phase 12's
+# box, the latest-discrete template (HMF 'ST') down the headline's ladder cut
+# to z=8 (the catalogs of every node wait on the host)
+SAMPLERS_Z_END = 8.0
+# the octave tolerances of tests/test_sampler_methods.py:143
+SAMPLER_OCTAVE_TOL = {"PARTITION": 0.75, "BINARY-SPLIT": 0.85}
+
+
+def _progenitor_octaves(inputs, step, edges):
+    """The first progenitor step's counts by mass bin of `edges` and the
+    conditional MF's expectation: per descendant the CMF integral over the
+    bin (below its own mass), conditioned as the sampler conditions it,
+    summed over the descendants in 256 log bins of their mass."""
+    from py21cmfast_torch.models import hmf
+    from py21cmfast_torch.models.ionization import _get_sigma_table
+
+    cosmo = inputs.cosmology
+    table = _get_sigma_table(inputs)
+    hmf_i = hmf.HMF_NAMES[inputs.matter_options.HMF]
+    eff = hmf_i if hmf_i in (0, 1, 4) else 0
+    growth, growth_prev = float(cosmo.dicke(step["z"])), float(cosmo.dicke(step["z_prev"]))
+    desc = step["desc"].double().numpy()
+    counts, bin_edges = np.histogram(np.log(desc), bins=256)
+    live = counts > 0
+    ln_m = 0.5 * (bin_edges[1:] + bin_edges[:-1])[live]
+    sig = table.sigma_of_lnm(ln_m)
+    delta = hmf.get_delta_crit(eff, sig, growth_prev) * growth / growth_prev
+    expect = []
+    for lo, hi in zip(edges[:-1], edges[1:]):
+        ln_hi = np.minimum(np.log(hi), ln_m)
+        per = hmf.integrate_cmf(table, hmf_i, growth, np.log(lo), np.maximum(ln_hi, np.log(lo)),
+                                delta, sig) * np.exp(ln_m)
+        expect.append(float((np.where(ln_hi > np.log(lo), per, 0.0) * counts[live]).sum()))
+    got = np.histogram(step["prog"].double().numpy(), bins=edges)[0]
+    return got, np.array(expect)
+
+
+def samplers_headline_phase(kernels):
+    """Phase 14: generate_coeval of the latest-discrete template at phase
+    12's box down the headline's ladder to z=8, once with PARTITION and once
+    with BINARY-SPLIT progenitors, from the default CUDA generators, launch
+    counts zeroed just before and read just after (one deposit launch a
+    node).  Each: the catalog chain's wall and its parts (`_timed_chain`),
+    the halo count at z=8, the seconds a node, and a gate on the first
+    progenitor step (z=8 to the next node): its count in each of 4 mass
+    octaves from SAMPLER_MIN_MASS within SAMPLER_OCTAVE_TOL of the
+    conditional MF's expectation (`_progenitor_octaves`); for the binary
+    split the rows that spilled past its 256 progenitors and the branches
+    force-saved at its last step."""
+    import torch
+
+    import py21cmfast_torch as p21
+    from py21cmfast_torch.models import halos
+    from py21cmfast_torch.ops import deposit
+
+    base = p21.InputParameters.from_template(
+        DISCRETE_TEMPLATE, random_seed=HEADLINE_SEED
+    ).evolve_input_structs(**DISCRETE_BOX).with_logspaced_redshifts(SAMPLERS_Z_END)
+    ics, ics_s = _sync_time(lambda: p21.compute_initial_conditions(base))
+    for method in ("PARTITION", "BINARY-SPLIT"):
+        tag = method.lower()
+        inputs = base.evolve_input_structs(SAMPLE_METHOD=method)
+        so, nodes = inputs.simulation_options, list(inputs.node_redshifts)
+        split = {"spilled": 0, "forced": 0}
+        kernel = halos._binary_split_kernel
+
+        def counted(*a, **kw):
+            out = kernel(*a, **kw)
+            split["spilled"] += int((out[3] > kw["cap_out"]).sum())
+            split["forced"] += out[4]
+            return out
+
+        halos._binary_split_kernel = counted
+        deposit.cic_deposit_swept.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        seconds = []
+        try:
+            with _timed_chain() as chain:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for cv in p21.generate_coeval(inputs, initial_conditions=ics):
+                    torch.cuda.synchronize()
+                    seconds.append(time.perf_counter() - t0)
+                    t0 = time.perf_counter()
+                    last = cv
+        finally:
+            halos._binary_split_kernel = kernel
+        launches = deposit.cic_deposit_swept.launches
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if len(seconds) != len(nodes) or abs(last.redshift - SAMPLERS_Z_END) > 1e-6:
+            raise AssertionError(f"{method}: {len(seconds)} nodes yielded of {len(nodes)}")
+        _check_fields(last.redshift, so.lowres_shape, last.perturbed_field, last.halobox,
+                      last.spin_temp, last.ionized_box, last.brightness_temperature)
+        for k in kernels:
+            k["launches_by_path"][f"{tag}_coeval"] = launches
+            k["launches"] = sum(k["launches_by_path"].values())
+        if launches != len(nodes):
+            raise AssertionError(f"{method}: {launches} deposit launches in {len(nodes)} nodes")
+        wall, prog = _print_chain(tag, chain)
+        later = np.array(seconds[1:])
+        print(f"[{tag}] {len(nodes)} nodes {nodes[0]:.3f} -> {nodes[-1]:.3f} in {sum(seconds):.2f} s "
+              f"(the first with the chain {seconds[0]:.2f} s), then median {np.median(later):.4f} s a "
+              f"node (min {later.min():.4f}, max {later.max():.4f}); <xH> at z={last.redshift:.3f} "
+              f"{last.neutral_fraction.double().mean().item():.6f}; launches {launches}; peak "
+              f"memory {peak:.3f} GiB; ICs {ics_s:.3f} s")
+        if method == "BINARY-SPLIT":
+            print(f"[{tag}] rows past 256 progenitors (their extra progenitors lost, as in the "
+                  f"JAX package): {split['spilled']}; branches force-saved after 48 steps: "
+                  f"{split['forced']}")
+        step = chain["first_step"]
+        edges = so.SAMPLER_MIN_MASS * 2.0 ** np.arange(5)
+        got, expect = _progenitor_octaves(inputs, step, edges)
+        ratio = got / expect
+        tol = SAMPLER_OCTAVE_TOL[method]
+        print(f"[{tag}] first progenitor step z={step['z_prev']:.4f} -> {step['z']:.4f}: "
+              f"{step['desc'].numel()} descendants, {step['prog'].numel()} progenitors; by mass "
+              f"octave from {so.SAMPLER_MIN_MASS:.0e}: {got.tolist()} against the CMF's "
+              f"{np.round(expect, 1).tolist()} (ratio {np.round(ratio, 4).tolist()}, limit 1 +- {tol})")
+        if not (np.all(expect >= 200) and np.all(np.abs(ratio - 1) < tol)):
+            raise AssertionError(f"{method}: the first progenitor step fails its octave gate")
+        del chain, last, step
+        torch.cuda.empty_cache()
+
+
+# the 0-D history's card-vs-CPU bound, a share of the value plus a share of
+# the series' largest magnitude: the float32 1-cell Ts chain over 92 nodes
+# differs by up to 2e-4 of its value, and Tb crosses zero
+GLOBAL_REL, GLOBAL_ABS = 1e-3, 1e-4
+
+
+def _global_on_cpu(inputs, path):
+    """The 0-D history on the CPU, in a process of its own (one torch
+    thread, beside the card's phases), written to `path`."""
+    import pickle
+
+    import torch
+
+    import py21cmfast_torch as p21
+
+    torch.set_num_threads(1)
+
+    t0 = time.perf_counter()
+    ge = p21.run_global_evolution(inputs, device="cpu")
+    with open(path, "wb") as fh:
+        pickle.dump((ge.quantities, time.perf_counter() - t0), fh)
+
+
+def start_global_on_cpu():
+    """Phase 15's CPU run of the 0-D history on the headline's inputs,
+    started in a process of its own at the beginning, beside the card's
+    phases; `global_phase` collects it."""
+    import multiprocessing
+    import tempfile
+
+    path = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_", dir="."), "global_cpu.pkl")
+    proc = multiprocessing.get_context("spawn").Process(
+        target=_global_on_cpu, args=(_headline_inputs(), path))
+    proc.start()
+    return proc, path
+
+
+def global_phase(cpu_run):
+    """Phase 15: run_global_evolution on the headline's inputs on the card,
+    against the same on the CPU (run beside the card's phases): every
+    quantity per node within GLOBAL_REL of its value plus GLOBAL_ABS of the
+    series' largest magnitude; the wall of each."""
+    import pickle
+    import shutil
+
+    import py21cmfast_torch as p21
+
+    inputs = _headline_inputs()
+    ge, wall = _sync_time(lambda: p21.run_global_evolution(inputs))
+    proc, path = cpu_run
+    proc.join()
+    if proc.exitcode != 0:
+        raise AssertionError(f"the CPU run of the 0-D history failed (exit code {proc.exitcode})")
+    with open(path, "rb") as fh:
+        quantities, cpu_wall = pickle.load(fh)
+    shutil.rmtree(os.path.dirname(path))
+    ok = sorted(quantities) == sorted(ge.quantities)
+    errs = {}
+    z = ge.node_redshifts
+    for name, c in quantities.items():
+        c, g = np.asarray(c, np.float64), np.asarray(ge.quantities[name], np.float64)
+        err = np.abs(g - c)
+        rel = err / np.maximum(np.abs(c), 1e-300)
+        errs[name] = (float(rel.max()), float(z[np.argmax(rel)]),
+                      float(err.max() / max(np.abs(c).max(), 1e-300)))
+        ok &= bool(np.all(err <= GLOBAL_REL * np.abs(c) + GLOBAL_ABS * np.abs(c).max()))
+    i8 = int(np.argmin(np.abs(z - 8.0)))
+    print(f"[global] run_global_evolution on the headline's inputs, {len(z)} nodes {z[0]:.3f} -> "
+          f"{z[-1]:.3f}: {wall:.2f} s on the card, {cpu_wall:.2f} s on the CPU; xH "
+          f"{ge.quantities['neutral_fraction'][i8]:.6f} and Tb {ge.quantities['brightness_temp'][i8]:.4f} "
+          f"mK at z={z[i8]:.4f}; (max rel, at z, max err / max) per quantity "
+          f"{{{', '.join(f'{k}: ({v[0]:.2e}, {v[1]:.3f}, {v[2]:.2e})' for k, v in errs.items())}}} "
+          f"(limit {GLOBAL_REL:.0e} of the value plus {GLOBAL_ABS:.0e} of the largest)")
+    if not ok:
+        raise AssertionError("the 0-D history on the card disagrees with the CPU run")
+
+
 def main():
     import torch
 
@@ -1989,27 +2563,38 @@ def main():
     t0 = time.perf_counter()
     card_info()
     check_host_memory()
-    build_kernels()
-    entry, headline = kernel_phase()
-    kernels = [entry]
-    dens_swept = small_coeval_phase()
-    perturb_paths_phase(dens_swept)
-    evolving_small_phase()
-    lightcone_small_phase()
-    minihalo_small_phase()
-    fixed_halos_small_phase()
-    discrete_small_phase()
-    main_path_phase(kernels)
-    stage_phase()
-    scroll_stage_phase(*scroll_phase(kernels))
-    headline_phase(kernels, headline)
-    del headline
-    torch.cuda.empty_cache()
-    minihalo_headline_phase(kernels)
-    torch.cuda.empty_cache()
-    fixed_halos_headline_phase(kernels)
-    torch.cuda.empty_cache()
-    discrete_headline_phase(kernels)
+    cpu_global = start_global_on_cpu()
+    try:
+        build_kernels()
+        entry, headline = kernel_phase()
+        kernels = [entry]
+        dens_swept = small_coeval_phase()
+        perturb_paths_phase(dens_swept)
+        evolving_small_phase()
+        lightcone_small_phase()
+        minihalo_small_phase()
+        fixed_halos_small_phase()
+        discrete_small_phase()
+        slice_small_phase()
+        main_path_phase(kernels)
+        stage_phase()
+        scroll_stage_phase(*scroll_phase(kernels))
+        base = headline_phase(kernels, headline)
+        photoncons_headline_phase(kernels, headline, base)
+        del headline
+        torch.cuda.empty_cache()
+        minihalo_headline_phase(kernels)
+        torch.cuda.empty_cache()
+        fixed_halos_headline_phase(kernels)
+        torch.cuda.empty_cache()
+        discrete_headline_phase(kernels)
+        torch.cuda.empty_cache()
+        samplers_headline_phase(kernels)
+        global_phase(cpu_global)
+    finally:
+        if cpu_global[0].is_alive():
+            cpu_global[0].terminate()
+        cpu_global[0].join()
     print(f"[total] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -11,9 +11,12 @@ package's names and inputs.  Device fields are float32 tensors, host tables floa
 the CPU is used only when the caller passes `device="cpu"`.  Discrete
 halos (SOURCE_MODEL 'CHMF-SAMPLER' and 'DEXM-ESF': DexM, the CHMF grid
 sampler, mass- or number-limited progenitors, the perturbed catalog and its
-HaloBox) run through the same entry points.  Options that are
-not ported yet raise NotImplementedError naming the ROADMAP item that brings
-them.  The swept CIC deposit is a hand-written CUDA kernel
+HaloBox, with the MASS-LIMITED, NUMBER-LIMITED, PARTITION and BINARY-SPLIT
+progenitor samplers) run through the same entry points, as do the three
+photon-conservation corrections (`setup_photon_cons`) and the global 0-D
+history (`run_global_evolution`).  What is not ported yet (the output
+cache, a device mesh) raises NotImplementedError naming the ROADMAP item
+that brings it.  The swept CIC deposit is a hand-written CUDA kernel
 (`csrc/cic_deposit.cu`), built with nvcc at its first use.
 """
 
@@ -27,6 +30,7 @@ from . import interop, lightconers
 from ._cfg import config
 from ._templates import create_params_from_template, list_templates, write_template
 from .drivers.coeval import Coeval, generate_coeval, run_coeval
+from .drivers.global_evolution import GlobalEvolution, run_global_evolution
 from .drivers.lightcone import LightCone, generate_lightcone, run_lightcone
 from .drivers.single_field import interp_halo_boxes
 from .exceptions import InfinityOrNaNError, ParameterError
@@ -47,6 +51,7 @@ from .models.halos import determine_halo_catalog, perturb_halo_catalog
 from .models.ics import compute_initial_conditions
 from .models.ionization import compute_ionization_field
 from .models.perturb import perturb_field
+from .models.photoncons import setup_photon_cons
 from .models.spintemp import compute_spin_temperature
 from .models.xray_source import compute_xray_source_field
 from .outputs import (
@@ -69,6 +74,7 @@ __all__ = [
     "BrightnessTemp",
     "Coeval",
     "CosmoParams",
+    "GlobalEvolution",
     "HaloBox",
     "HaloCatalog",
     "InfinityOrNaNError",
@@ -106,6 +112,8 @@ __all__ = [
     "perturb_halo_catalog",
     "register_class_transfer",
     "run_coeval",
+    "run_global_evolution",
     "run_lightcone",
+    "setup_photon_cons",
     "write_template",
 ]

@@ -13,7 +13,8 @@ fixed grids of SOURCE_MODEL 'L-INTEGRAL', or with a halo sampler
 ('CHMF-SAMPLER', 'DEXM-ESF') the node's halo catalog, perturbed and
 gridded.  The catalogs are sampled before the scroll, ascending in z
 (reference evolve_halos, coeval.py:435), and wait on the host until their
-node.
+node.  Under a PHOTON_CONS_TYPE the photon-conservation calibration runs
+first, and every ionization step reads its state.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from ..models import halos as halos_module
 from ..models import ionization, perturb, spintemp, xray_source
 from ..models.brightness import brightness_temperature
 from ..models.hmf import set_scaling_constants
+from ..models.photoncons import setup_photon_cons
 from ..outputs import (
     BrightnessTemp,
     HaloBox,
@@ -122,10 +124,6 @@ def generate_coeval(
         not_in_slice("the output cache", 16)
     ao = inputs.astro_options
     mo = inputs.matter_options
-    perturb.check_inputs(inputs)
-    ionization.check_inputs(inputs)
-    if mo.source_model_uses_halo_sampler:
-        halos_module.check_inputs(inputs)
     out_redshifts = [float(z) for z in np.atleast_1d(np.asarray(out_redshifts))]
     all_z = _required_redshifts(inputs, out_redshifts)
     if not all_z:
@@ -135,6 +133,10 @@ def generate_coeval(
 
     if initial_conditions is None:
         initial_conditions = ics_module.compute_initial_conditions(inputs, device=dev)
+
+    # photon non-conservation (reference _setup_ics_and_pfs_for_scrolling):
+    # the calibration runs once per inputs and device, before the halo chain
+    photoncons_state = setup_photon_cons(inputs, device=dev)
 
     lagrangian = mo.source_model_uses_lagrangian_grids
     sampler = mo.source_model_uses_halo_sampler
@@ -204,7 +206,8 @@ def generate_coeval(
         ion = ionization.compute_ionization_field(
             z, inputs, pf, previous_ionized_box=prev_ion, spin_temp=ts,
             prev_redshift=prev_z, previous_perturbed_field=prev_pf,
-            vcb_box=initial_conditions.lowres_vcb, halobox=halobox, device=dev,
+            vcb_box=initial_conditions.lowres_vcb, halobox=halobox,
+            photoncons_state=photoncons_state, device=dev,
         )
         # the previous node's Nion stacks (2 x n_R grids with minihalos) are
         # read: release the scroll's hold on them now

@@ -1,8 +1,7 @@
-"""Single-field helpers of the user-facing API (reference
-drivers/single_field.py), following py21cmfast_tpu/drivers/single_field.py.
-
-Only `interp_halo_boxes` lives here; the compute functions are exported by
-the package from their model modules.
+"""Single-field compute functions: the user-facing per-field API
+(reference drivers/single_field.py), following
+py21cmfast_tpu/drivers/single_field.py: the compute functions of the model
+modules, re-exported, and `interp_halo_boxes`.
 """
 
 from __future__ import annotations
@@ -11,9 +10,29 @@ import dataclasses
 
 import numpy as np
 
+from ..models.brightness import brightness_temperature
+from ..models.halobox import compute_fixed_halo_grid, compute_halo_grid
+from ..models.halos import determine_halo_catalog, perturb_halo_catalog
+from ..models.ics import compute_initial_conditions
+from ..models.ionization import compute_ionization_field
+from ..models.perturb import perturb_field
+from ..models.spintemp import compute_spin_temperature
+from ..models.xray_source import compute_xray_source_field
 from ..outputs import HaloBox
 
-__all__ = ["interp_halo_boxes"]
+__all__ = [
+    "compute_initial_conditions",
+    "perturb_field",
+    "determine_halo_catalog",
+    "perturb_halo_catalog",
+    "compute_halo_grid",
+    "compute_fixed_halo_grid",
+    "interp_halo_boxes",
+    "compute_xray_source_field",
+    "compute_spin_temperature",
+    "compute_ionization_field",
+    "brightness_temperature",
+]
 
 
 def interp_halo_boxes(halo_boxes, fields, redshift: float) -> HaloBox:

@@ -24,6 +24,7 @@ from .inputs import (
     MatterOptions,
     SimulationOptions,
 )
+from .models.photoncons import PhotonConsFit, PhotonConsState
 from .outputs import (
     BrightnessTemp,
     HaloBox,
@@ -48,6 +49,7 @@ __all__ = [
     "halo_catalog_from_numpy",
     "perturbed_halo_catalog_from_numpy",
     "coeval_from_numpy",
+    "photoncons_state_from_dict",
 ]
 
 _GROUPS = {
@@ -159,3 +161,15 @@ def coeval_from_numpy(arrays: dict, device="cuda") -> Coeval:
         spin_temp=None if ts is None else ts_box_from_numpy(ts, device),
         halobox=None if hb is None else halobox_from_numpy(hb, device),
     )
+
+
+def photoncons_state_from_dict(d: dict | None):
+    """The port's photon-conservation state from the fields of the JAX
+    package's (`dataclasses.asdict` of its PhotonConsState or
+    PhotonConsFit): a PhotonConsFit when `d` has a `kind`, else a
+    PhotonConsState; None for None.  Arrays are copied to float64 numpy."""
+    if d is None:
+        return None
+    cls = PhotonConsFit if "kind" in d else PhotonConsState
+    return cls(**{f.name: (np.array(d[f.name], np.float64) if isinstance(d[f.name], np.ndarray)
+                            else d[f.name]) for f in dataclasses.fields(cls)})

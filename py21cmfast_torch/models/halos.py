@@ -14,12 +14,16 @@ PerturbedHaloCatalog.c:25-149, following py21cmfast_tpu/models/halos.py:
  * Progenitors (`_sample_progenitors`): each halo of the previous (lower-z)
    catalog draws 64 masses from the inverse CMF conditioned on its mass and
    keeps them MASS-LIMITED (`_fix_mass_keep`, the reference's two-sided
-   overshoot correction) or NUMBER-LIMITED; positions and the property
-   draws are inherited, the latter AR(1)-mixed with fresh normals.
+   overshoot correction) or NUMBER-LIMITED, or splits it by the partition
+   sampler (Sheth & Lemson 1999) or the binary split (Parkinson+08, walked
+   as a list of branches); positions and the property draws are inherited,
+   the latter AR(1)-mixed with fresh normals.
 
 Every random step is split in two: a draw, from a `torch.Generator` on its
 own device, and a deterministic core that takes the draws as tensors; the
-draws are moved to the run's device.  The host parts (numpy float64) are
+draws are moved to the run's device; the partition and binary-split steps
+draw as they go, a callable of the step handing the core its draws.  The
+host parts (numpy float64) are
 the condition tables, the DexM radii and barriers, and the numpy draws of
 the reference (`default_rng(seed + 3)` for the DexM jitter,
 `default_rng(seed + 29)` for the collapsed cells).  Catalogs are stored
@@ -31,10 +35,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .._device import not_in_slice, resolve_device
+from .._device import resolve_device
 from ..cosmology.constants import physconst
 from ..inputs import InputParameters
-from ..ops import cic, fft, filters, grids
+from ..ops import cic, fft, filters, grids, special
 from ..outputs import HaloCatalog, InitialConditions, PerturbedHaloCatalog
 from . import hmf
 from .ionization import _get_sigma_table
@@ -49,17 +53,22 @@ DEXM_SAME_LEVEL_STRATA = 4
 SAMPLER_CHUNK_ENTRIES = 2**22
 # progenitor draws per descendant (the multiplicity of a ~2% step is small)
 PROGENITOR_K_MAX = 64
-# descendants per chunk of the progenitor sampler
-PROGENITOR_CHUNK_ROWS = 2**20
+# the progenitor sampler's chunks: at most PROGENITOR_CHUNK_ROWS descendants
+# and at most PROGENITOR_CHUNK_BYTES of a method's working set, about
+# PROGENITOR_ROW_BYTES a descendant: MASS/NUMBER-LIMITED (B, 64) float32
+# draws and masses, some sixteen such arrays alive in `_fix_mass_keep`; the
+# partition its (B, 64) masses and emit mask and a step's ~45 float32
+# temporaries a row; the binary split ~1.1 branches a descendant, each with
+# its trapezoid and ~40 temporaries a step, and its emitted progenitors
+PROGENITOR_CHUNK_ROWS = 2**23
+PROGENITOR_CHUNK_BYTES = 2**32
+PROGENITOR_ROW_BYTES = {"MASS-LIMITED": 4096, "NUMBER-LIMITED": 4096, "PARTITION": 512,
+                        "BINARY-SPLIT": 512}
+# the binary split's scan steps, lattice slots a descendant and progenitors
+# a descendant (the JAX package's t_max, capacity and cap_out)
+BINARY_SPLIT_T_MAX, BINARY_SPLIT_CAPACITY, BINARY_SPLIT_CAP_OUT = 48, 64, 256
 
 _f32 = np.float32
-
-
-def check_inputs(inputs: InputParameters) -> None:
-    """Raise NotImplementedError for the progenitor samplers outside the port."""
-    method = inputs.matter_options.SAMPLE_METHOD
-    if method not in ("MASS-LIMITED", "NUMBER-LIMITED"):
-        not_in_slice(f"SAMPLE_METHOD={method!r}", 13)
 
 
 def default_generator(inputs: InputParameters, redshift: float, device) -> torch.Generator:
@@ -477,12 +486,14 @@ def _delta_crit(hmf_int, sigma, growth):
 
 
 def progenitor_tables(redshift: float, inputs: InputParameters, prev_redshift: float,
-                      max_mass):
+                      max_mass, inverse=True):
     """The host part of the progenitor sampler (float64): over N_COND_INTERP
     descendant masses from SAMPLER_MIN_MASS to `max_mass` (the largest
     descendant, a float32) the inverse CMF, the expected collapsed mass
     (times HALOMASS_CORRECTION) and halo count, each descendant conditioned
-    on its collapse barrier at the previous redshift rescaled to this one."""
+    on its collapse barrier at the previous redshift rescaled to this one.
+    The inverse CMF (`inv_tab`, None unless `inverse`) serves the MASS- and
+    NUMBER-LIMITED samplers only."""
     so = inputs.simulation_options
     cosmo = inputs.cosmology
     sigma_table = _get_sigma_table(inputs)
@@ -497,10 +508,11 @@ def progenitor_tables(redshift: float, inputs: InputParameters, prev_redshift: f
     sig_bins = sigma_table.sigma_of_lnm(ln_mbins)
     delta_bins = hmf.get_delta_crit(eff_hmf, sig_bins, growth_prev) * growth / growth_prev
     args = (sigma_table, hmf_int, growth, np.log(m_min), ln_mbins, sig_bins, delta_bins)
-    _, inv_tab = hmf.build_inverse_cmf_table(
-        *args, n_prob=so.N_PROB_INTERP, min_logprob=so.MIN_LOGPROB)
+    inv_tab = hmf.build_inverse_cmf_table(
+        *args, n_prob=so.N_PROB_INTERP, min_logprob=so.MIN_LOGPROB)[1] if inverse else None
     return dict(
-        inv_tab=inv_tab, ln_mbins=ln_mbins, sig_bins=sig_bins, growth=growth, eff_hmf=eff_hmf,
+        inv_tab=inv_tab, ln_mbins=ln_mbins, sig_bins=sig_bins, delta_bins=delta_bins,
+        growth=growth, growth_prev=growth_prev, eff_hmf=eff_hmf, hmf_int=hmf_int,
         mcoll_bins=hmf.mcoll_conditional(*args) * np.exp(ln_mbins),
         nhalo_bins=hmf.nhalo_conditional(*args) * np.exp(ln_mbins),
     )
@@ -533,36 +545,382 @@ def _descendant_conditions(inputs, h, masses_d):
     return cond_t, m_tgt, n_exp, rare
 
 
+# ---------------------------------------------------------------------------
+# The partition (Sheth & Lemson 1999) and binary-split (Parkinson+08) samplers
+
+
+def _lerp(x, x0, inv_dx, table):
+    """grids.uniform_lerp, NaN where `x` is NaN without indexing with it:
+    the JAX package computes such junk on lanes it then masks (a branch at
+    exactly twice the resolution mass), where XLA's gather clamps the
+    index."""
+    nan = torch.isnan(x)
+    return torch.where(nan, float("nan"), grids.uniform_lerp(torch.where(nan, x0, x), x0, inv_dx, table))
+
+
+def _gaussian_tail(nu_min, u, u1, u2):
+    """A standard normal conditioned on X > nu_min (gsl_ran_ugaussian_tail),
+    from the draws: the inverse CDF at the uniform `u` in [1e-7, 1) where
+    nu_min <= 2, else Devroye's tail method X = sqrt(nu_min^2 - 2 ln U1),
+    accepted where U2 < nu_min / X, over 4 tries (4, B) of `u1` in
+    [1e-12, 1) and `u2`: the first accepted try, nu_min + 0.1 when none is.
+    erfc and erfinv are XLA's float32 approximations (ops/special.py)."""
+    sqrt2 = grids.device_scalar(np.sqrt(_f32(2.0)), torch.float32, nu_min.device)
+    q = 0.5 * special.erfc32(nu_min / sqrt2)
+    x_inv = sqrt2 * special.erfinv32(torch.clamp(1.0 - 2.0 * q * u, -0.999999, 0.999999))
+    x_try = torch.sqrt(nu_min * nu_min - 2.0 * special.log32(u1))
+    acc = u2 < nu_min / torch.clamp_min(x_try, 1e-10)
+    # the first accepted try (argmax returns the first maximum)
+    first = torch.argmax(acc.to(torch.uint8), dim=0, keepdim=True)
+    x_dev = torch.gather(x_try, 0, first)[0]
+    x_dev = torch.where(acc.any(dim=0), x_dev, nu_min + 0.1)
+    return torch.where(nu_min > 2.0, x_dev, torch.maximum(x_inv, nu_min))
+
+
+def _st_taylor_dev(sig, sig_cond, growth):
+    """The moving ST barrier's 5-term Taylor expansion (hmf.c:234-267), in
+    float32 at the float32 `growth`."""
+    a, alpha, beta = hmf.JENKINS_a, hmf.JENKINS_c, hmf.JENKINS_b
+    del_ = _f32(physconst.delta_c_sph) / growth
+    sigsq = sig * sig
+    sigsq_inv = torch.reciprocal(sigsq)
+    sigdiff = torch.where((sig - sig_cond).abs() < 1e-9, 1e-6, sigsq - sig_cond * sig_cond)
+    t = torch.ones_like(sig)
+    result = torch.ones_like(sig)
+    for i in range(1, 6):
+        t = grids.true_div(t * -sigdiff, float(i)) * float(alpha - i + 1) * sigsq_inv
+        result = result + t
+    pre1 = float(np.sqrt(_f32(a)) * del_)
+    pre2 = beta * special.pow32(sigsq_inv * float(_f32(a) * del_ * del_), -alpha)
+    return pre1 * (1.0 + pre2 * result)
+
+
+def _axis(a):
+    """The first point and the float32 inverse spacing of a uniform float32
+    axis, as the JAX package's kernels form them."""
+    a = np.asarray(a, _f32)
+    return float(a[0]), float(_f32(a.size - 1) / (a[-1] - a[0]))
+
+
+def partition_tables(sigma_table, m_lo, m_hi, n=512):
+    """Float32 host tables of the partition sampler: sigma on a uniform ln M
+    axis from `m_lo` to `m_hi`, and ln M on a uniform sigma axis."""
+    ln_axis = np.linspace(np.log(m_lo), np.log(m_hi), n)
+    sig_vals = sigma_table.sigma_of_lnm(ln_axis)  # decreasing in ln M
+    sig_axis = np.linspace(sig_vals[-1], sig_vals[0], n)
+    lnm_of_sig = np.interp(sig_axis, sig_vals[::-1], ln_axis[::-1])
+    return tuple(a.astype(_f32) for a in (ln_axis, sig_vals, sig_axis, lnm_of_sig))
+
+
+def _partition_rng(n, use_st, generator, dev):
+    """The draws of the partition sampler for a chunk of `n` descendants: a
+    callable of (step, rows) giving the step's draws for those rows."""
+    def draw(t, rows):
+        k = rows.numel()
+        out = dict(u=_rand((k,), generator, dev, low=1e-7),
+                   u1=_rand((4, k), generator, dev, low=1e-12), u2=_rand((4, k), generator, dev))
+        if use_st:
+            out["u_acc"] = _rand((k,), generator, dev)
+        return out
+    return draw
+
+
+def _partition_kernel(delta_cond, ln_m_cond, active0, tables, sigma_min, m_min, growth,
+                      corr_fudge, draw, *, t_max, use_st):
+    """Sheth & Lemson 1999 partition sampling (stoc_partition_sample,
+    Stochasticity.c:437-486): each condition's remaining mass is split by a
+    nu drawn from the truncated Gaussian (with the ST moving-barrier
+    rejection under HMF 'ST') until it falls below `m_min`; one step a
+    progenitor draw across the conditions, t_max steps.  `tables` are
+    `partition_tables`; the float32 scalars are host floats; `draw(t, rows)`
+    gives the draws of step t for the still active rows (only those are
+    drawn and updated: a row that stops emits nothing more).  Returns the
+    (B, t_max) masses and emit mask."""
+    dev = delta_cond.device
+    sig_vals, lnm_of_sig = (torch.as_tensor(tables[i], device=dev) for i in (1, 3))
+    lnm0, inv_dlnm = _axis(tables[0])
+    sig0, inv_dsig = _axis(tables[2])
+    sig_lo, sig_hi = float(tables[2][0]), float(tables[2][-1])
+    sigma_min_sq = float(_f32(sigma_min) * _f32(sigma_min))
+    B = delta_cond.numel()
+    m_cond = special.exp32(ln_m_cond)
+    m_rem = m_cond.clone()
+    active = active0.clone()
+    masses = torch.zeros((B, t_max), dtype=torch.float32, device=dev)
+    emitted = torch.zeros((B, t_max), dtype=torch.bool, device=dev)
+    for t in range(t_max):
+        rows = active.nonzero()[:, 0]
+        if rows.numel() == 0:
+            break
+        d = draw(t, rows)
+        mr = m_rem[rows]
+        sig_r = _lerp(special.log32(torch.clamp_min(mr, 1.0)), lnm0, inv_dlnm, sig_vals)
+        if use_st:
+            a = hmf.JENKINS_a
+            dc = _f32(physconst.delta_c_sph) / _f32(growth)
+            coef = float(_f32(a) * dc * dc)
+            dcrit_r = (float(np.sqrt(_f32(a)) * dc) * (1.0 + hmf.JENKINS_b * special.pow32(
+                grids.true_div(sig_r * sig_r, coef), hmf.JENKINS_c))) * float(_f32(growth))
+        else:
+            dcrit_r = torch.full_like(sig_r, physconst.delta_c_sph)
+        delta_cur = (dcrit_r - delta_cond[rows]) / (mr / m_cond[rows])
+        del_c = grids.true_div(delta_cur, float(_f32(growth)))
+        del_term = del_c * del_c
+        sigdiff_min = torch.clamp_min(sigma_min_sq - sig_r * sig_r, 1e-12)
+        nu_min = torch.sqrt(del_term / sigdiff_min)
+        nu = _gaussian_tail(nu_min, d["u"], d["u1"], d["u2"]) * float(_f32(corr_fudge))
+        nu_c = torch.clamp_min(nu, 1e-10)
+        sig_samp = torch.sqrt(del_term / (nu_c * nu_c) + sig_r * sig_r)
+        if use_st:
+            t1 = _st_taylor_dev(sig_samp, sig_r, _f32(growth)) - del_c
+            t2 = _st_taylor_dev(torch.full_like(sig_r, float(_f32(sigma_min))), sig_r,
+                                _f32(growth)) - del_c
+            accept = d["u_acc"] <= t2 / torch.clamp_min(t1, 1e-30)
+        else:
+            accept = torch.ones_like(mr, dtype=torch.bool)
+        sig_c = torch.clamp(sig_samp, sig_lo, sig_hi)
+        m_samp = torch.minimum(
+            special.exp32(_lerp(sig_c, sig0, inv_dsig, lnm_of_sig)), mr)
+        m_new = torch.where(accept, mr - m_samp, mr)
+        masses[rows, t] = torch.where(accept, m_samp, 0.0)
+        emitted[rows, t] = accept
+        m_rem[rows] = m_new
+        active[rows] = m_new > float(_f32(m_min))
+    return masses, emitted
+
+
+def _binary_split_rng(n, generator, dev):
+    """The draws of the binary-split sampler for a chunk of `n` descendants:
+    a callable of (step, rows, slots) giving the uniforms u1, u2, u3 of the
+    step's branches, each at (its descendant, its lattice slot)."""
+    def draw(t, rows, slots):
+        return tuple(_rand((rows.numel(),), generator, dev) for _ in range(3))
+    return draw
+
+
+# the binary split's float32 temporaries a branch in one step, in bytes: the
+# 17-point trapezoid of `frac_below_res` (four arrays of it) and some forty
+# per-branch arrays; a step's branches are computed in batches of at most
+# BINARY_SPLIT_STEP_BYTES of them
+BINARY_SPLIT_BRANCH_BYTES = 17 * 4 * 4 + 40 * 4
+BINARY_SPLIT_STEP_BYTES = 2**31
+
+
+def _segment_cumsum(x, first):
+    """Inclusive cumulative sums of the int64 `x` within runs of equal keys,
+    `first` the index of each entry's run start."""
+    cs = torch.cumsum(x, dim=0)
+    return cs - (cs[first] - x[first])
+
+
+def _binary_split_kernel(m_cond, d_start0, d_target, tables, m_res, g0, gamma1, gamma2, draw,
+                         *, t_max, capacity, cap_out):
+    """Parkinson+08 binary-split merger trees (stoc_split_sample,
+    Stochasticity.c:488-660), breadth-parallel as in the JAX package: every
+    branch of every condition advances one barrier step a scan step;
+    finished branches emit both progenitors into (B, cap_out) rows (in slot
+    order, the larger progenitors first; one past cap_out falls into a
+    spill slot and is lost, as in JAX); a continuing split keeps the larger
+    progenitor in its slot and the smaller one claims the lowest free slot
+    of the row's `capacity`.  The spawned branch starts at its sibling
+    slot's advanced barrier plus the step again (the sibling's slot is
+    zeroed first when the larger progenitor fell below resolution), as the
+    JAX package has it.  `tables` = (ln M axis, sigma, dsigma^2/dM) on a
+    uniform axis; the scalars are float32 host floats; `draw(t, rows, slots)`
+    gives the uniforms u1, u2, u3 of the step's branches.
+
+    The JAX package walks the whole (B, capacity) lattice every step and
+    scatters into (B, cap_out) rows; here the occupied slots are kept as a
+    list of branches (descendant, slot, mass, barrier) ordered by descendant
+    and slot, about one a descendant, and the emitted progenitors as a list
+    of (descendant, place in its row, mass): the empty slots emit nothing
+    and stay empty there, so the progenitors are the lattice's, in its
+    order.  Branches still active after t_max steps are force-saved.
+    Returns the progenitors' descendants, places and masses, ordered by
+    descendant and place, every descendant's count (past cap_out where its
+    row spilled) and the number of force-saved branches."""
+    dev = m_cond.device
+    B, C = m_cond.numel(), capacity
+    sigma_tab, dsigsq_tab = (torch.as_tensor(tables[i], device=dev) for i in (1, 2))
+    lnm0, inv_dlnm = _axis(tables[0])
+
+    def sigma_of(x):
+        return _lerp(x, lnm0, inv_dlnm, sigma_tab)
+
+    def dsigsq_of(x):
+        return _lerp(x, lnm0, inv_dlnm, dsigsq_tab)
+
+    m_res_t = torch.tensor(m_res, dtype=torch.float32, device=dev)
+    sigma_res = sigma_of(special.log32(m_res_t))
+    sigsq_res = sigma_res * sigma_res
+    eps1_sqrt2 = float(_f32(0.1) * np.sqrt(_f32(2.0)))
+    sqrt_2_pi = float(np.sqrt(_f32(2.0 / np.pi)))
+    half_g1 = float(_f32(gamma1) / _f32(2.0))
+    lin17 = torch.linspace(0.0, 1.0, 17, dtype=torch.float32, device=dev)
+    out_ct = torch.zeros(B, dtype=torch.int64, device=dev)
+    emitted = []
+
+    def emit_rows(row, first, emit, m_emit):
+        """Record the emitted masses at their places after their rows'
+        counts, in slot order; a place past cap_out is lost (the JAX
+        package's spill slot)."""
+        e = emit.to(torch.int64)
+        place = out_ct[row] + _segment_cumsum(e, first) - 1
+        kept = emit & (place < cap_out)
+        emitted.append((row[kept], place[kept], m_emit[kept]))
+        out_ct.index_add_(0, row, e)
+
+    def frac_below_res(sigma_s, sigsq_s, G1, dd):
+        """ComputeFraction_split: the mass lost below resolution over dd,
+        the Parkinson+08 J(u) by a 16-interval trapezoid."""
+        u_res = sigma_s / torch.sqrt(torch.clamp_min(sigsq_res - sigsq_s, 1e-12))
+        uu = lin17 * u_res[:, None]
+        uc = torch.clamp_min(uu, 1e-8)
+        integ = special.pow32(1.0 + torch.reciprocal(uc * uc), half_g1)
+        integ = torch.where(uu > 0, integ, 0.0)
+        j_val = 0.5 * ((uu[:, 1:] - uu[:, :-1]) * (integ[:, 1:] + integ[:, :-1])).sum(
+            dim=1, dtype=torch.float64).float()
+        return sqrt_2_pi * j_val * G1 / sigma_s * dd
+
+    def advance(m, d, dd_target, u1, u2, u3):
+        """One barrier step of a batch of branches: their larger and smaller
+        progenitors (0 below resolution), whether they finish, and the step."""
+        lnm = special.log32(torch.clamp_min(m, 1.0))
+        m_half = 0.5 * m
+        lnm_half = lnm - float(_f32(np.log(2.0)))
+        sigma_s = sigma_of(lnm)
+        sigsq_s = sigma_s * sigma_s
+        sigma_h = sigma_of(lnm_half)
+        sigsq_h = sigma_h * sigma_h
+        G1 = g0 * special.pow32(d / torch.clamp_min(sigma_s, 1e-10), gamma2)
+        q_res = m_res_t / torch.clamp_min(m, 1.0)
+        # the no-split branch (q_res >= 0.5): the timestep limit only
+        dd_nosplit = eps1_sqrt2 * torch.sqrt(torch.clamp_min(sigsq_h - sigsq_s, 1e-12))
+        # the split branch
+        alpha_h = -m_half / (2.0 * sigsq_h) * dsigsq_of(lnm_half)  # -dln sigma/dln m at m/2
+        v_res = sigsq_res * special.pow32(torch.clamp_min(sigsq_res - sigsq_s, 1e-12), -1.5)
+        v_half = sigsq_h * special.pow32(torch.clamp_min(sigsq_h - sigsq_s, 1e-12), -1.5)
+        log_2q = special.log32(torch.clamp_min(2.0 * q_res, 1e-10))
+        beta = special.log32(v_res / v_half) / log_2q
+        b_coef = special.pow32(2.0, beta) * v_half
+        mu = -special.log32(sigma_res / sigma_h) / log_2q if gamma1 < 0 else alpha_h
+        eta = beta - 1.0 - gamma1 * mu
+        pow_diff = special.pow32(0.5, eta) - special.pow32(q_res, eta)
+        G2 = G1 * special.pow32(sigma_h / sigma_s, gamma1) * special.pow32(0.5, mu * gamma1)
+        eta_safe = torch.where(eta.abs() > 1e-10, eta, 1e-10)
+        dn_dd = sqrt_2_pi * b_coef * pow_diff / eta_safe * alpha_h * G2
+        dd_split = torch.minimum(dd_nosplit, torch.full_like(dn_dd, 0.1) / torch.clamp_min(dn_dd, 1e-10))
+        can_split = q_res < 0.5
+        dd = torch.where(can_split, dd_split, dd_nosplit)
+        save = dd >= dd_target
+        dd = torch.minimum(dd, dd_target)
+        # the split draw (the reference draws it before it tests `save`)
+        n_upper = dn_dd * dd
+        q = special.pow32(special.pow32(q_res, eta) + pow_diff * u2, torch.reciprocal(eta_safe))
+        m_q = q * m
+        lnm_q = special.log32(torch.clamp_min(m_q, 1.0))
+        sigma_q = sigma_of(lnm_q)
+        alpha_q = -m_q / (2.0 * sigma_q * sigma_q) * dsigsq_of(lnm_q)
+        sigsq_q = sigma_q * sigma_q
+        r_q = (alpha_q / torch.clamp_min(alpha_h, 1e-10)) * (
+            sigsq_q * special.pow32(torch.clamp_min(sigsq_q - sigsq_s, 1e-12), -1.5)
+            / (b_coef * special.pow32(torch.clamp_min(q, 1e-10), beta)))
+        q = torch.where(can_split & (u1 < n_upper) & (u3 <= r_q), q, 0.0)
+        m1 = (1.0 - frac_below_res(sigma_s, sigsq_s, G1, dd) - q) * m
+        m2 = q * m
+        return (torch.where(m1 > m_res_t, m1, 0.0), torch.where(m2 > m_res_t, m2, 0.0), save, dd)
+
+    # the branches, ordered by (descendant, slot); every one is occupied
+    row = (m_cond > 0).nonzero()[:, 0]
+    slot = torch.zeros_like(row)
+    m, d = m_cond[row], d_start0[row]
+    per = max(1, BINARY_SPLIT_STEP_BYTES // BINARY_SPLIT_BRANCH_BYTES)
+    for t in range(t_max):
+        if row.numel() == 0:
+            break
+        u1, u2, u3 = draw(t, row, slot)
+        dd_target = d_target[row] - d
+        parts = [advance(*xs) for xs in zip(*(x.split(per) for x in (m, d, dd_target, u1, u2, u3)))]
+        m1, m2, save, dd = (torch.cat(p) for p in zip(*parts))
+        del parts, u1, u2, u3, dd_target
+        first = torch.searchsorted(row, row)
+        # finished branches emit both progenitors: the larger ones, then the smaller
+        emit_rows(row, first, save & (m1 > 0), m1)
+        emit_rows(row, first, save & (m2 > 0), m2)
+        # unfinished ones: the slot keeps the larger progenitor ...
+        keep1 = ~save & (m1 > 0)
+        d_kept = torch.where(keep1, d + dd, 0.0)
+        # ... and the smaller one claims its row's spawn_rank-th free slot
+        spawn = ~save & (m2 > 0)
+        spawn_rank = _segment_cumsum(spawn.to(torch.int64), first) - 1
+        n_kept = torch.zeros(B, dtype=torch.int64, device=dev).index_add_(0, row, keep1.to(torch.int64))
+        ok = spawn & (spawn_rank < C - n_kept[row])
+        s_row, s_rank = row[ok], spawn_rank[ok]
+        if s_row.numel():
+            # the free slots of the spawning rows, in slot order (a stable
+            # sort of their occupancy by the kept branches)
+            rows_u = torch.unique(s_row)
+            local = torch.searchsorted(rows_u, row)
+            in_u = (local < rows_u.numel()) & (rows_u[local.clamp(max=rows_u.numel() - 1)] == row)
+            occ = torch.zeros((rows_u.numel(), C), dtype=torch.uint8, device=dev)
+            occ[local[keep1 & in_u], slot[keep1 & in_u]] = 1
+            free_order = torch.argsort(occ, dim=1, stable=True)
+            s_slot = free_order[torch.searchsorted(rows_u, s_row), s_rank]
+        else:
+            s_slot = s_row
+        new_row = torch.cat([row[keep1], s_row])
+        new_slot = torch.cat([slot[keep1], s_slot])
+        order = torch.argsort(new_row * C + new_slot)
+        m = torch.cat([m1[keep1], m2[ok]])[order]
+        d = torch.cat([d_kept[keep1], (d_kept + dd)[ok]])[order]
+        row, slot = new_row[order], new_slot[order]
+        del m1, m2, save, dd, keep1, spawn, spawn_rank, ok, first, d_kept
+
+    # force-save the branches still active after t_max steps
+    emit = m > m_res_t
+    if row.numel():
+        emit_rows(row, torch.searchsorted(row, row), emit, m)
+    rows, places, masses = (torch.cat(x) for x in zip(*emitted)) if emitted else (
+        row, slot, m)
+    order = torch.argsort(rows * cap_out + places)
+    return rows[order], places[order], masses[order], out_ct, int(emit.sum())
+
+
 def _sample_progenitors(redshift, inputs, prev_cat: HaloCatalog, generator, dev) -> HaloCatalog:
     """Progenitors of each halo of `prev_cat` from its redshift up to
     `redshift` (reference sample_halo_progenitors, Stochasticity.c:943-1114),
-    in chunks of PROGENITOR_CHUNK_ROWS descendants."""
-    check_inputs(inputs)
+    in chunks of at most PROGENITOR_CHUNK_ROWS descendants and
+    PROGENITOR_CHUNK_BYTES of the method's working set, by SAMPLE_METHOD: the
+    inverse CMF kept MASS- or NUMBER-LIMITED, the partition sampler (HMF
+    'PS' or 'ST' only) or the binary split."""
     so = inputs.simulation_options
+    method = inputs.matter_options.SAMPLE_METHOD
+    hmf_int = hmf.HMF_NAMES[inputs.matter_options.HMF]
+    if method == "PARTITION" and hmf_int not in (hmf.HMF_PS, hmf.HMF_ST):
+        raise ValueError("PARTITION sampling requires HMF='PS' or 'ST'")
     masses_d = prev_cat.halo_masses.to(dev)
     n = masses_d.numel()
+    inverse = method in ("MASS-LIMITED", "NUMBER-LIMITED")
     h = progenitor_tables(redshift, inputs, float(prev_cat.redshift),
-                          masses_d.max().item() if n else 0.0)
-    inv_table = torch.as_tensor(h["inv_tab"].astype(_f32), device=dev)
-    number_limited = inputs.matter_options.SAMPLE_METHOD == "NUMBER-LIMITED"
+                          masses_d.max().item() if n else 0.0, inverse=inverse)
+    sample = (_inverse_cmf_chunk if inverse else _partition_chunk if method == "PARTITION"
+              else _binary_split_chunk)
+    chunk = max(1, min(PROGENITOR_CHUNK_ROWS, PROGENITOR_CHUNK_BYTES // PROGENITOR_ROW_BYTES[method]))
     desc, prog_m, rare_idx, rare_m = [], [], [], []
-    for start in range(0, n, PROGENITOR_CHUNK_ROWS):
-        cond_t, m_tgt, n_exp, rare = _descendant_conditions(
-            inputs, h, masses_d[start:start + PROGENITOR_CHUNK_ROWS])
+    for start in range(0, n, chunk):
+        rows_d = masses_d[start:start + chunk]
+        cond_t, m_tgt, n_exp, rare = _descendant_conditions(inputs, h, rows_d)
         if bool(rare.any()):
             ids = rare.nonzero()[:, 0]
             rare_idx.append(ids + start)
             rare_m.append(m_tgt[ids].float())
             m_tgt = torch.where(rare, 0.0, m_tgt)
             n_exp = torch.where(rare, 0.0, n_exp)
-        draws = _progenitor_rng(n_exp.float(), PROGENITOR_K_MAX, number_limited, generator, dev)
-        m, keep = _progenitor_draws(cond_t.float(), m_tgt.float(), inv_table, so.MIN_LOGPROB,
-                                    so.SAMPLER_MIN_MASS, **draws)
-        del draws, cond_t, m_tgt, n_exp, rare
-        rows, slots = keep.nonzero(as_tuple=True)
+        rows, m = sample(inputs, h, rows_d, cond_t, m_tgt, n_exp, generator, dev)
+        del cond_t, m_tgt, n_exp, rare
         desc.append(rows + start)
-        prog_m.append(m[rows, slots])
-        del m, keep, rows, slots
+        prog_m.append(m)
+        del rows, m
     empty_i = torch.zeros(0, dtype=torch.int64, device=dev)
     empty_f = torch.zeros(0, dtype=torch.float32, device=dev)
     desc_idx = torch.cat(desc + rare_idx) if desc else empty_i
@@ -584,6 +942,70 @@ def _sample_progenitors(redshift, inputs, prev_cat: HaloCatalog, generator, dev)
         xray_rng=mixed[2],
         n_halos=n_new,
     )
+
+
+def _compacted(m, keep):
+    """The kept entries of (B, K) masses: their rows and masses, row-major."""
+    rows, slots = keep.nonzero(as_tuple=True)
+    return rows, m[rows, slots]
+
+
+def _inverse_cmf_chunk(inputs, h, masses_d, cond_t, m_tgt, n_exp, generator, dev):
+    """MASS- or NUMBER-LIMITED progenitors of a chunk: their descendants'
+    rows and their masses, row-major in the (B, K) draws."""
+    so = inputs.simulation_options
+    number_limited = inputs.matter_options.SAMPLE_METHOD == "NUMBER-LIMITED"
+    inv_table = torch.as_tensor(h["inv_tab"].astype(_f32), device=dev)
+    draws = _progenitor_rng(n_exp.float(), PROGENITOR_K_MAX, number_limited, generator, dev)
+    return _compacted(*_progenitor_draws(cond_t.float(), m_tgt.float(), inv_table, so.MIN_LOGPROB,
+                                         so.SAMPLER_MIN_MASS, **draws))
+
+
+def _partition_chunk(inputs, h, masses_d, cond_t, m_tgt, n_exp, generator, dev):
+    """Partition progenitors of a chunk (emitted and at least
+    SAMPLER_MIN_MASS): their descendants' rows and their masses, in the
+    order of the (B, PROGENITOR_K_MAX) emissions, the conditions at each
+    descendant's barrier (JAX halos.py:931-955)."""
+    so = inputs.simulation_options
+    m_min = so.SAMPLER_MIN_MASS
+    sigma_table = _get_sigma_table(inputs)
+    ln_md = torch.log(torch.clamp(masses_d.double(), min=m_min)).float()
+    delta_d = _interp(ln_md.double(), torch.as_tensor(h["ln_mbins"], device=dev),
+                      torch.as_tensor(h["delta_bins"], device=dev)).float()
+    tables = partition_tables(sigma_table, m_min * 0.25, float(np.exp(h["ln_mbins"][-1])) * 1.05)
+    use_st = h["hmf_int"] == hmf.HMF_ST
+    draw = _partition_rng(masses_d.numel(), use_st, generator, dev)
+    m, keep = _partition_kernel(
+        delta_d, ln_md, m_tgt > 0, tables, float(sigma_table.sigma_of_lnm(np.log(m_min))),
+        m_min, h["growth"], so.HALOMASS_CORRECTION, draw, t_max=PROGENITOR_K_MAX,
+        use_st=use_st)
+    return _compacted(m, keep & (m >= float(_f32(m_min))))
+
+
+def _binary_split_chunk(inputs, h, masses_d, cond_t, m_tgt, n_exp, generator, dev):
+    """Binary-split progenitors of a chunk (at least SAMPLER_MIN_MASS): their
+    descendants' rows and their masses in the order of the JAX package's
+    (B, 256) rows, the tree walked from each descendant's barrier at the
+    previous redshift to this one's (JAX halos.py:909-930)."""
+    so = inputs.simulation_options
+    m_min = so.SAMPLER_MIN_MASS
+    sigma_table = _get_sigma_table(inputs)
+    ln_axis = np.linspace(np.log(m_min * 0.25), float(h["ln_mbins"][-1]) + 0.1, 512)
+    tables = tuple(np.asarray(a, _f32) for a in (
+        ln_axis, sigma_table.sigma_of_lnm(ln_axis), sigma_table.dsigmasq_of_lnm(ln_axis)))
+    B = masses_d.numel()
+
+    def barrier(growth):
+        return torch.full((B,), float(_f32(physconst.delta_c_sph / growth)), device=dev)
+
+    rows, _, m, _, _ = _binary_split_kernel(
+        torch.clamp(masses_d, min=float(_f32(m_min))), barrier(h["growth_prev"]),
+        barrier(h["growth"]), tables, float(_f32(m_min)), float(_f32(so.PARKINSON_G0)),
+        float(_f32(so.PARKINSON_y1)), float(_f32(so.PARKINSON_y2)),
+        _binary_split_rng(B, generator, dev), t_max=BINARY_SPLIT_T_MAX,
+        capacity=BINARY_SPLIT_CAPACITY, cap_out=BINARY_SPLIT_CAP_OUT)
+    keep = m >= float(_f32(m_min))
+    return rows[keep], m[keep]
 
 
 # ---------------------------------------------------------------------------

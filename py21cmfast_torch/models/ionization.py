@@ -25,6 +25,12 @@ and of the mean fix (IonisationBox.c:615-621, 1054-1067).  With
 IONISE_ENTIRE_SPHERE the whole sphere around each newly ionized cell is
 ionized (bubble_helper_progs.c:341).
 
+Photon non-conservation (models/photoncons.py): under Z-PHOTONCONS the box
+is computed at the adjusted redshift with the density scaled by the growth
+ratio D(z_adj)/D(z) (IonisationBox.c:1389-1407); under ALPHA- and
+F-PHOTONCONS the fitted ALPHA_ESC or F_ESC10 replaces the ACG escape
+parameter of the scaling constants.
+
 The host precomputes (per snapshot, float64): the radius ladder, sigma(M(R)),
 the global Nion/Fcoll normalizations and the per-R conditional-Nion tables
 (reference setup_integration_tables:702-768, interp_tables.c:291-579).
@@ -39,7 +45,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .._device import not_in_slice, resolve_device
+from .._device import resolve_device
 from ..cosmology.constants import FRACT_FLOAT_ERR, TINY, physconst
 from ..cosmology.recombination import RecombinationHistory
 from ..inputs import InputParameters
@@ -556,13 +562,6 @@ def _get_sigma_table(inputs: InputParameters):
     return _sigma_table_cache[key]
 
 
-def check_inputs(inputs: InputParameters) -> None:
-    """Raise NotImplementedError for ionization options outside the port."""
-    ao = inputs.astro_options
-    if ao.PHOTON_CONS_TYPE != "NO-PHOTONCONS":
-        not_in_slice(f"PHOTON_CONS_TYPE={ao.PHOTON_CONS_TYPE!r}", 14)
-
-
 def compute_ionization_field(
     redshift: float,
     inputs: InputParameters,
@@ -573,6 +572,7 @@ def compute_ionization_field(
     previous_perturbed_field: PerturbedField | None = None,
     vcb_box: torch.Tensor | None = None,
     halobox: HaloBox | None = None,
+    photoncons_state=None,
     *,
     device="cuda",
 ) -> IonizedBox:
@@ -588,9 +588,12 @@ def compute_ionization_field(
     turnover masses.  With a Lagrangian source model (SOURCE_MODEL
     'L-INTEGRAL') `halobox` brings the source grids: its n_ion and
     whalo_sfr, filtered at each radius, replace the conditional Nion tables.
-    The fields are moved to `device` if they live elsewhere."""
+    `photoncons_state` (from `setup_photon_cons`) applies the photon
+    non-conservation correction: a PhotonConsState shifts the redshift the
+    box is computed at, a PhotonConsFit the escape parameters.  The box
+    keeps `redshift` as its own.  The fields are moved to `device` if they
+    live elsewhere."""
     dev = resolve_device(device)
-    check_inputs(inputs)
     so = inputs.simulation_options
     mo = inputs.matter_options
     ao = inputs.astro_options
@@ -600,8 +603,34 @@ def compute_ionization_field(
     box_lens = so.box_lens
     density = perturbed_field.density.to(dev)
 
+    # photon non-conservation: shift the effective redshift and rescale the
+    # density by the growth ratio (IonisationBox.c:1389-1407); the fitted
+    # variants flow through the scaling constants instead
+    stored_redshift = redshift
+    photoncons_factor = 1.0
+    photoncons_fit = None
+    if photoncons_state is not None:
+        if hasattr(photoncons_state, "adjusted_redshift"):
+            redshift = photoncons_state.adjusted_redshift(redshift)
+            photoncons_factor = float(cosmo.dicke(redshift) / cosmo.dicke(stored_redshift))
+        else:
+            photoncons_fit, photoncons_state = photoncons_state, None
+
     growth = float(cosmo.dicke(redshift))
     sc = hmf.set_scaling_constants(redshift, inputs)
+    if photoncons_fit is not None:
+        # ALPHA/F-PHOTONCONS: the escape parameter's Q-dependent fit (reference
+        # get_fesc_fit, photoncons.c), on the ACG scaling relations only
+        v = photoncons_fit.value_at(stored_redshift)
+        if photoncons_fit.kind == "fesc":
+            fesc_new = float(np.clip(v, 1e-6, 1.0))
+            sc = dataclasses.replace(
+                sc, fesc_10=fesc_new,
+                Mlim_Fesc=hmf.mass_limit_where_scaling_hits_unity(sc.alpha_esc, fesc_new))
+        else:
+            sc = dataclasses.replace(
+                sc, alpha_esc=float(v),
+                Mlim_Fesc=hmf.mass_limit_where_scaling_hits_unity(float(v), sc.fesc_10))
     m_min = hmf.minimum_source_mass(redshift, inputs, xray=False)
     sigma_min = float(cosmo.sigma_z0(m_min))
     sigma_table = _get_sigma_table(inputs)
@@ -651,7 +680,7 @@ def compute_ionization_field(
                 shape, float(1.0 - rec_hist.x_e(redshift)), dtype=torch.float32, device=dev
             )
         return IonizedBox(
-            redshift=np.float32(redshift),
+            redshift=np.float32(stored_redshift),
             neutral_fraction=xh,
             z_reion=prev_z_reion,
             ionisation_rate_G12=torch.zeros(shape, dtype=torch.float32, device=dev),
@@ -692,13 +721,18 @@ def compute_ionization_field(
         if previous_ionized_box is not None:
             prev_mfc = float(previous_ionized_box.mean_f_coll)
             prev_mfc_mini = float(previous_ionized_box.mean_f_coll_MINI)
-        if prev_redshift is not None and prev_mfc * ion_eff_gl > 1e-4:
+        # the previous snapshot's adjusted redshift (Z-PHOTONCONS, which the
+        # inputs refuse with USE_MINI_HALOS: kept as the JAX package has it)
+        prev_z_adj = prev_redshift
+        if photoncons_state is not None and prev_redshift is not None:
+            prev_z_adj = photoncons_state.adjusted_redshift(prev_redshift)
+        if prev_z_adj is not None and prev_mfc * ion_eff_gl > 1e-4:
             f_prev = float(hmf.nion_general(
-                sigma_table, cosmo, hmf_int, prev_redshift, ln_m_min, ln_m_max, mt_a, sc))
+                sigma_table, cosmo, hmf_int, prev_z_adj, ln_m_min, ln_m_max, mt_a, sc))
             mean_fcoll = prev_mfc + mean_fcoll - f_prev
-        if prev_redshift is not None and prev_mfc_mini * ion_eff_mini > 1e-4:
+        if prev_z_adj is not None and prev_mfc_mini * ion_eff_mini > 1e-4:
             f_prev_mini = float(hmf.nion_general_mini(
-                sigma_table, cosmo, hmf_int, prev_redshift, ln_m_min, ln_m_max, mt_m, sc))
+                sigma_table, cosmo, hmf_int, prev_z_adj, ln_m_min, ln_m_max, mt_m, sc))
             mean_fcoll_mini = prev_mfc_mini + mean_fcoll_mini - f_prev_mini
 
     track_nion = bool(
@@ -778,11 +812,14 @@ def compute_ionization_field(
     if track_nion:
         # the previous snapshot's tables, for Nion(z_prev, Mt)
         p_lo, p_hi, p_tables, p_caps, p_tables_mini, p_caps_mini = _build_nion_tables_mini(
-            inputs, ladder, sigma_table, float(cosmo.dicke(prev_redshift)), m_min, sc,
+            inputs, ladder, sigma_table, float(cosmo.dicke(prev_z_adj)), m_min, sc,
             l10_mturns)
         p_rows, p_rows_mini = device_rows(p_tables), device_rows(p_tables_mini)
+        prev_delta = previous_perturbed_field.density.to(dev)
+        if photoncons_state is not None:
+            prev_delta = prev_delta * float(_f32(cosmo.dicke(prev_z_adj) / cosmo.dicke(prev_redshift)))
         mini.update(
-            prev_delta=previous_perturbed_field.density.to(dev),
+            prev_delta=prev_delta,
             prev_nion=previous_ionized_box.unnormalised_nion.to(dev),
             prev_nion_mini=previous_ionized_box.unnormalised_nion_mini.to(dev),
         )
@@ -825,8 +862,10 @@ def compute_ionization_field(
             )
         steps.append(step)
 
+    # Z-PHOTONCONS: the scan reads the density scaled to the adjusted redshift
+    delta_adj = density * float(_f32(photoncons_factor)) if photoncons_factor != 1.0 else density
     xh, gamma, mfp, z_reion, nion_stack, nion_mini_stack = _ionize_scan(
-        density, prev_z_reion, steps,
+        delta_adj, prev_z_reion, steps,
         shape=shape,
         box_lens=box_lens,
         hii_filter=inputs.astro_options.hii_filter_int,
@@ -847,7 +886,7 @@ def compute_ionization_field(
         lagr=lagr,
         paint_spheres=ao.IONISE_ENTIRE_SPHERE,
     )
-    del mini, lagr
+    del mini, lagr, delta_adj
 
     # --- cumulative recombination update (set_recombination_rates:1258-1342) ---
     cumulative_rec = None
@@ -895,11 +934,11 @@ def compute_ionization_field(
             return torch.tensor(v, dtype=torch.float32, device=dev)
 
         kinetic_temperature = _ionized_temperature(
-            xh, z_reion, density, tk_neutral, scalar(ap.T_RE), scalar(redshift)
+            xh, z_reion, density, tk_neutral, scalar(ap.T_RE), scalar(stored_redshift)
         )
 
     return IonizedBox(
-        redshift=np.float32(redshift),
+        redshift=np.float32(stored_redshift),
         neutral_fraction=xh,
         z_reion=z_reion,
         ionisation_rate_G12=gamma,

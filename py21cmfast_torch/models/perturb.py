@@ -6,7 +6,10 @@ hires cell, mass 1 + delta*D_init) are moved by the (2)LPT displacement and
 CIC-deposited by the swept deposit (ops/deposit.py: the hand-written CUDA
 kernel on the card): onto the lowres grid at the integer ratio DIM/HII_DIM,
 or with PERTURB_ON_HIGH_RES onto the hires grid itself (ratio 1), which is
-then tophat-filtered and subsampled to lowres.
+then tophat-filtered and subsampled to lowres.  At a non-integer DIM/HII_DIM
+each hires particle reads the displacement of its resampled lowres cell and
+is scattered by `ops/cic.cic_scatter_flat` (`index_add_`), as the JAX
+package's general route does; the choice is made from the shapes alone.
 
 Normalization chain:
   grid = CIC(1 + delta_hi * D_init)            [sum of masses per cell]
@@ -21,13 +24,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .._device import not_in_slice, resolve_device
+from .._device import resolve_device
 from ..cosmology.constants import FRACT_FLOAT_ERR, physconst
 from ..inputs import InputParameters
-from ..ops import deposit, fft, filters, grids
+from ..ops import cic, deposit, fft, filters, grids
 from ..outputs import InitialConditions, PerturbedField
 
-__all__ = ["perturb_field"]
+__all__ = ["perturb_field", "uses_swept_deposit"]
 
 _f32 = np.float32
 
@@ -58,20 +61,55 @@ def _displacement_cells(vel, vel_2lpt, fac_za, fac_2lpt, cells_per_mpc):
     return tuple(out)
 
 
-def check_inputs(inputs: InputParameters) -> None:
-    """Raise NotImplementedError for perturb options outside the port: a
-    displaced perturb onto the lowres grid with a non-integer DIM/HII_DIM
-    (the deposit kernel takes one integer ratio for all axes)."""
+def uses_swept_deposit(inputs: InputParameters) -> bool:
+    """True when a displaced perturb deposits through the swept kernel: at
+    an integer ratio of the hires grid to the grid it deposits on (always
+    so with PERTURB_ON_HIGH_RES); otherwise it takes the scatter route."""
     so = inputs.simulation_options
     mo = inputs.matter_options
-    hi_shape, lo_shape = so.hires_shape, so.lowres_shape
-    ratio = hi_shape[0] // lo_shape[0]
-    if (
-        mo.PERTURB_ALGORITHM != "LINEAR"
-        and not mo.PERTURB_ON_HIGH_RES
-        and any(h != ratio * l for h, l in zip(hi_shape, lo_shape))
-    ):
-        not_in_slice(f"a displaced perturb with DIM/HII_DIM = {so.hires_to_lowres_factor}", 5)
+    hi_shape = so.hires_shape
+    pt_shape = hi_shape if mo.PERTURB_ON_HIGH_RES else so.lowres_shape
+    ratio = hi_shape[0] // pt_shape[0]
+    return mo.PERTURB_ALGORITHM != "LINEAR" and all(
+        h == ratio * p for h, p in zip(hi_shape, pt_shape))
+
+
+def _displace_and_scatter(hires_density, vel, vel_2lpt, d_init, fac_za, fac_2lpt, *, hi_shape,
+                          out_shape, box_lens):
+    """The general deposit of the JAX package's `_displace_and_deposit`
+    (map_mass.c:146-208) for a non-integer DIM/HII_DIM: each hires cell
+    reads the displacement of its lowres cell by the resample map
+    int(i n/N + 0.5) of each axis, moves by it in hires-cell units and is
+    CIC-scattered onto the `out_shape` grid, in x slabs of about 2^24
+    particles.  Returns the accumulated mass."""
+    dev = hires_density.device
+    nx, ny, nz = hi_shape
+    maps = [torch.as_tensor((np.arange(n) * (o / n) + 0.5).astype(np.int64) % o, device=dev)
+            for n, o in zip(hi_shape, out_shape)]
+    # the float32 growth factors times the cells per Mpc, in float32
+    scale = [float(_f32(fac_za) * _f32(hi_shape[i]) / _f32(box_lens[i])) for i in range(3)]
+    scale_2 = [float(_f32(fac_2lpt) * _f32(hi_shape[i]) / _f32(box_lens[i])) for i in range(3)]
+    ratio_out = float(_f32(out_shape[0] / hi_shape[0]))
+    ratio_out_z = float(_f32(out_shape[2] / hi_shape[2]))
+    iy = torch.arange(ny, dtype=torch.float32, device=dev)[None, :, None]
+    iz = torch.arange(nz, dtype=torch.float32, device=dev)[None, None, :]
+    acc = torch.zeros(int(np.prod(out_shape)), dtype=torch.float32, device=dev)
+    slab = max(1, 2**24 // (ny * nz))
+    for x0 in range(0, nx, slab):
+        xs = torch.arange(x0, min(nx, x0 + slab), device=dev)
+
+        def at(v):
+            return v[maps[0][xs]][:, maps[1]][:, :, maps[2]]
+
+        pos = [xs.to(torch.float32)[:, None, None], iy, iz]
+        for a in range(3):
+            pos[a] = pos[a] + at(vel[a]) * scale[a]
+            if vel_2lpt is not None:
+                pos[a] = pos[a] - at(vel_2lpt[a]) * scale_2[a]
+        mass = 1.0 + hires_density[x0:x0 + xs.numel()] * d_init
+        cic.cic_scatter_flat(acc, pos[0] * ratio_out, pos[1] * ratio_out, pos[2] * ratio_out_z,
+                             mass, out_shape)
+    return acc.reshape(out_shape)
 
 
 def _finalize_density_and_velocity(
@@ -107,7 +145,6 @@ def perturb_field(
 
     The IC fields are moved to `device` if they live elsewhere."""
     dev = resolve_device(device)
-    check_inputs(inputs)
     so = inputs.simulation_options
     mo = inputs.matter_options
     cosmo = inputs.cosmology
@@ -123,6 +160,15 @@ def perturb_field(
     if mo.PERTURB_ALGORITHM == "LINEAR":
         grid_1pd = ics.lowres_density.to(dev) * float(_f32(D)) + 1.0
         mass_factor = 1.0
+    elif not uses_swept_deposit(inputs):
+        # a non-integer DIM/HII_DIM: the general resample-and-scatter route
+        use_2lpt = mo.PERTURB_ALGORITHM == "2LPT" and ics.vx_2LPT is not None
+        grid_1pd = _displace_and_scatter(
+            ics.hires_density.to(dev), tuple(v.to(dev) for v in (ics.vx, ics.vy, ics.vz)),
+            tuple(v.to(dev) for v in (ics.vx_2LPT, ics.vy_2LPT, ics.vz_2LPT)) if use_2lpt else None,
+            float(_f32(D_init)), fac_za, fac_2lpt, hi_shape=hi_shape, out_shape=pt_shape,
+            box_lens=box_lens)
+        mass_factor = float(_f32(np.prod(pt_shape) / np.prod(hi_shape)))
     else:
         # PERTURB_DEPOSIT "SWEPT" and "SCATTER" name two TPU schedules of one
         # function at an integer ratio: hires cell h lands at h/R + d(c(h)),

@@ -11,10 +11,22 @@ import numpy as np
 import torch
 
 
+_scalars: dict = {}
+
+
+def device_scalar(value, dtype, device):
+    """A 0-d tensor of `value` on `device`, made once: creating one copies
+    to the card and waits for it."""
+    key = (float(value), dtype, torch.device(device))
+    if key not in _scalars:
+        _scalars[key] = torch.tensor(float(value), dtype=dtype, device=device)
+    return _scalars[key]
+
+
 def true_div(x, divisor):
     """x / divisor, a true float32 division on every device: divided by a
     host scalar, CUDA multiplies by its reciprocal instead."""
-    return x / torch.tensor(divisor, dtype=x.dtype, device=x.device)
+    return x / device_scalar(divisor, x.dtype, x.device)
 
 
 def k_axes(shape, box_lens, device):

@@ -1,11 +1,13 @@
 """The port's perturb paths beyond the default SWEPT deposit, against the JAX
-package on the CPU: PERTURB_DEPOSIT="SCATTER" and PERTURB_ON_HIGH_RES, at
-HII_DIM=16, DIM=32, BOX_LEN=24.
+package on the CPU: PERTURB_DEPOSIT="SCATTER", PERTURB_ON_HIGH_RES and a
+non-integer DIM/HII_DIM (DIM=40: 2.5), at HII_DIM=16, DIM=32, BOX_LEN=24.
 
 Both packages get the same hires density (numpy, from a seed) through
 `initial_density=`.  In the port every integer-ratio path is one function,
-ops/deposit.cic_deposit_swept (on the CPU its plain version); the JAX package
-takes its slab scatter (`_displace_and_deposit`) for both options.
+ops/deposit.cic_deposit_swept (on the CPU its plain version), and a
+non-integer ratio takes the resample-and-scatter route
+(`perturb._displace_and_scatter`); the JAX package takes its slab scatter
+(`_displace_and_deposit`) for all three.
 Tolerances, as tests/test_torch_ics.py and tests/test_torch_slice.py state
 them for the SWEPT path:
   ICs fields           max-abs <= 1e-5 max|field| (float32 FFTs and tophat of
@@ -33,6 +35,7 @@ SMALL = dict(HII_DIM=16, DIM=32, BOX_LEN=24.0)
 MODES = {
     "SCATTER": dict(PERTURB_DEPOSIT="SCATTER"),
     "ON_HIGH_RES": dict(PERTURB_ON_HIGH_RES=True),
+    "NON_INTEGER": dict(DIM=40),
 }
 REDSHIFTS = [8.0, 10.5]
 
@@ -42,7 +45,7 @@ def states():
     """Per mode: inputs of both packages and both packages' ICs from one density."""
     out = {}
     for mode, over in MODES.items():
-        jinp = jax_inputs(**SMALL, **over)
+        jinp = jax_inputs(**{**SMALL, **over})
         tinp = port_inputs(jinp)
         dens = numpy_grf(jinp, seed=21)
         out[mode] = dict(
@@ -131,11 +134,21 @@ def test_on_high_res_differs_from_lowres_perturb(states):
 @pytest.mark.parametrize("over", [dict(DIM=20), dict(DIM=20, PERTURB_DEPOSIT="SCATTER")],
                          ids=["SWEPT", "SCATTER"])
 def test_non_integer_ratio_still_raises(over):
+    """A non-integer DIM/HII_DIM (2.5) no longer raises: both deposit
+    options take the scatter route, decided from the shapes, and give one
+    field; with the deposit on the hires grid the kernel's ratio is 1."""
     inp = t21.InputParameters(random_seed=1).evolve_input_structs(
         HII_DIM=8, DIM=16, BOX_LEN=16.0, SOURCE_MODEL="E-INTEGRAL").evolve_input_structs(**over)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 5"):
-        t21.run_coeval(inp, 8.0, device="cpu")
+    assert not tpert.uses_swept_deposit(inp)
+    cv = t21.run_coeval(inp, 8.0, device="cpu")
+    other = inp.evolve_input_structs(
+        PERTURB_DEPOSIT="SWEPT" if over.get("PERTURB_DEPOSIT") else "SCATTER")
+    pf = tpert.perturb_field(8.0, other, cv.initial_conditions, device="cpu")
+    np.testing.assert_array_equal(pf.density.numpy(), cv.density.numpy())
+    assert np.isfinite(cv.brightness_temp.numpy()).all()
+    assert 0.0 < float(cv.neutral_fraction.mean()) <= 1.0
     # with the deposit on the hires grid the ratio is 1 whatever DIM/HII_DIM is
     on_hires = inp.evolve_input_structs(PERTURB_ON_HIGH_RES=True)
+    assert tpert.uses_swept_deposit(on_hires)
     cv = t21.run_coeval(on_hires, 8.0, device="cpu")
     assert tuple(cv.density.shape) == inp.simulation_options.lowres_shape

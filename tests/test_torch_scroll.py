@@ -196,18 +196,30 @@ def test_no_evolution_means_no_coupling(calls):
         (dict(USE_TS_FLUCT=True, SOURCE_MODEL="CHMF-SAMPLER"), None),
         (dict(USE_TS_FLUCT=True, SOURCE_MODEL="CHMF-SAMPLER", SAMPLE_METHOD="NUMBER-LIMITED",
               USE_MINI_HALOS=True), None),
-        (dict(USE_TS_FLUCT=True, SOURCE_MODEL="CHMF-SAMPLER", SAMPLE_METHOD="PARTITION"), 13),
-        (dict(USE_TS_FLUCT=True, PHOTON_CONS_TYPE="Z-PHOTONCONS"), 14),
+        (dict(USE_TS_FLUCT=True, SOURCE_MODEL="CHMF-SAMPLER", SAMPLE_METHOD="PARTITION"), None),
+        (dict(USE_TS_FLUCT=True, PHOTON_CONS_TYPE="Z-PHOTONCONS"), None),
+        (dict(USE_TS_FLUCT=True, SOURCE_MODEL="DEXM-ESF", SAMPLE_METHOD="BINARY-SPLIT"), None),
+        (dict(USE_TS_FLUCT=True), 16),
+        (dict(USE_TS_FLUCT=True), 17),
     ],
-    # the CHMF-SAMPLER case keeps the id it had while the sampler raised
+    # the CHMF-SAMPLER, PARTITION and Z-PHOTONCONS cases keep the ids they
+    # had while they raised
     ids=["minihalos", "L-INTEGRAL", "sharp-k-heat-filter-runs", "IONISE_ENTIRE_SPHERE",
          "CHMF-SAMPLER-raises", "CHMF-SAMPLER+NUMBER-LIMITED+minihalos", "PARTITION-raises",
-         "Z-PHOTONCONS-raises"],
+         "Z-PHOTONCONS-raises", "BINARY-SPLIT", "cache-raises", "mesh-raises"],
 )
 def test_evolving_options_outside_the_slice_raise(over, item):
+    """Every evolving option runs down the node ladder; what is still not
+    ported (the output cache, item 16; a device mesh, item 17) raises."""
     inp = _small_inputs(**over).with_logspaced_redshifts(8.0, 12.0)
     if item is None:
         out = t21.run_coeval(inp, 8.0, device="cpu")
+        if inp.astro_options.PHOTON_CONS_TYPE != "NO-PHOTONCONS":
+            # the box keeps its node's redshift, computed at the shifted one
+            state = t21.setup_photon_cons(inp, device="cpu")
+            assert state.adjusted_redshift(8.0) < 8.0 and float(out.ionized_box.redshift) == 8.0
+        if inp.matter_options.source_model_uses_halo_sampler:
+            assert float(out.halobox.count.sum()) > 0.0
         assert np.isfinite(out.brightness_temp.numpy()).all()
         if out.spin_temp is not None:
             assert np.isfinite(out.spin_temp.spin_temperature.numpy()).all()
@@ -230,4 +242,7 @@ def test_evolving_options_outside_the_slice_raise(over, item):
                 assert float(out.ionized_box.log10_Mturnover_MINI_ave) > 5.0
         return
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 item {item}"):
-        t21.run_coeval(inp, 8.0, device="cpu")
+        if item == 16:
+            t21.run_coeval(inp, 8.0, cache=object(), device="cpu")
+        else:
+            tsp.compute_spin_temperature(8.0, inp, None, mesh=object(), device="cpu")

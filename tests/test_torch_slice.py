@@ -255,7 +255,7 @@ def no_cuda():
     ["compute_initial_conditions", "perturb_field", "compute_ionization_field",
      "brightness_temperature", "run_coeval", "interop", "run_lightcone",
      "compute_xray_source_field", "compute_fixed_halo_grid", "determine_halo_catalog",
-     "compute_halo_grid", "perturb_halo_catalog"],
+     "compute_halo_grid", "perturb_halo_catalog", "setup_photon_cons", "run_global_evolution"],
 )
 def test_entry_points_default_to_cuda(no_cuda, call):
     """Called without device=, an entry point asks for the card and raises
@@ -278,13 +278,17 @@ def test_entry_points_default_to_cuda(no_cuda, call):
         "compute_halo_grid": lambda: t21.compute_halo_grid(
             8.0, inp.evolve_input_structs(SOURCE_MODEL="CHMF-SAMPLER"), None),
         "perturb_halo_catalog": lambda: t21.perturb_halo_catalog(8.0, inp, None, None),
+        "setup_photon_cons": lambda: t21.setup_photon_cons(
+            inp.evolve_input_structs(PHOTON_CONS_TYPE="Z-PHOTONCONS")),
+        "run_global_evolution": lambda: t21.run_global_evolution(inp),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[call]()
 
 
 # options that once raised here and run since the minihalo slice, the
-# fixed-grid source slice and the discrete-halo slice
+# fixed-grid source slice, the discrete-halo slice and the slice of the
+# progenitor samplers, photon conservation and the non-integer perturb
 RUN_ON_CPU = (
     dict(USE_TS_FLUCT=True, USE_MINI_HALOS=True),
     dict(USE_TS_FLUCT=True, RECOMB_MODEL="HOMOGENEOUS", SOURCE_MODEL="DEXM-ESF"),
@@ -293,7 +297,13 @@ RUN_ON_CPU = (
     dict(SOURCE_MODEL="L-INTEGRAL"),
     dict(SOURCE_MODEL="CHMF-SAMPLER"),
     dict(IONISE_ENTIRE_SPHERE=True),
+    dict(SOURCE_MODEL="CHMF-SAMPLER", SAMPLE_METHOD="PARTITION"),
+    dict(SOURCE_MODEL="DEXM-ESF", SAMPLE_METHOD="BINARY-SPLIT"),
+    dict(PHOTON_CONS_TYPE="Z-PHOTONCONS"),
+    dict(DIM=20),
 )
+# what still raises, by the ROADMAP item that brings it
+STILL_RAISING = {"cache": 16, "mesh": 17}
 
 
 @pytest.mark.parametrize(
@@ -310,17 +320,24 @@ RUN_ON_CPU = (
         dict(DIM=20),
         dict(V_CB_MODEL="FLUCTS"),
         dict(IONISE_ENTIRE_SPHERE=True),
+        dict(cache=True),
+        dict(mesh=True),
     ],
     ids=lambda d: ",".join(f"{k}={v}" for k, v in d.items()),
 )
 def test_options_outside_the_slice_raise(over):
-    """Options outside the port raise (the PARTITION and BINARY-SPLIT
-    progenitor samplers name item 13); the minihalo and v_cb options (ROADMAP
-    Queue 1 item 11), L-INTEGRAL (item 12), IONISE_ENTIRE_SPHERE (item 6) and
-    the halo samplers CHMF-SAMPLER and DEXM-ESF (item 13) now run on the CPU
-    and give finite boxes."""
+    """What is not ported raises, naming its ROADMAP item: the output cache
+    (item 16) and a device mesh (item 17).  The minihalo and v_cb options
+    (item 11), L-INTEGRAL (item 12), IONISE_ENTIRE_SPHERE (item 6), the halo
+    samplers CHMF-SAMPLER and DEXM-ESF with every progenitor method (item
+    13; the PARTITION and BINARY-SPLIT cases down a node ladder, so that
+    progenitors are sampled), Z-PHOTONCONS (item 14) and a non-integer
+    DIM/HII_DIM (item 5) run on the CPU and give finite boxes."""
     inp = t21.InputParameters(random_seed=1).evolve_input_structs(
-        HII_DIM=8, DIM=16, BOX_LEN=16.0, SOURCE_MODEL="E-INTEGRAL").evolve_input_structs(**over)
+        HII_DIM=8, DIM=16, BOX_LEN=16.0, SOURCE_MODEL="E-INTEGRAL").evolve_input_structs(
+        **{k: v for k, v in over.items() if k not in STILL_RAISING})
+    if "SAMPLE_METHOD" in over:
+        inp = inp.with_logspaced_redshifts(8.0, 12.0)
     if over in RUN_ON_CPU:
         out = t21.run_coeval(inp, 8.0, device="cpu")
         ion = out.ionized_box
@@ -342,9 +359,16 @@ def test_options_outside_the_slice_raise(over):
         if vcb is not None:
             assert vcb.shape == (8, 8, 8)
             assert float(vcb.min()) >= 0.0 and float(vcb.max()) > 0.0
+        if over.get("PHOTON_CONS_TYPE"):
+            assert t21.setup_photon_cons(inp, device="cpu").adjusted_redshift(8.0) < 8.0
+        assert tuple(out.density.shape) == (8, 8, 8)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        t21.run_coeval(inp, 8.0, device="cpu")
+    (what,) = over
+    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 item {STILL_RAISING[what]}"):
+        if what == "cache":
+            t21.run_coeval(inp, 8.0, cache=object(), device="cpu")
+        else:
+            t21.compute_xray_source_field(8.0, inp, [], mesh=object(), device="cpu")
 
 
 def test_cache_and_node_scroll_raise():
@@ -374,3 +398,26 @@ def test_lightcone_cache_raises():
     gen = t21.generate_lightcone(inp, cache=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="cache.*ROADMAP Queue 1 item 16"):
         next(gen)
+
+
+@pytest.mark.parametrize(
+    "over",
+    [dict(SOURCE_MODEL="CHMF-SAMPLER", SAMPLE_METHOD="PARTITION"),
+     dict(SOURCE_MODEL="CHMF-SAMPLER", SAMPLE_METHOD="BINARY-SPLIT"),
+     dict(PHOTON_CONS_TYPE="F-PHOTONCONS"),
+     dict(DIM=20)],
+    ids=lambda d: ",".join(f"{k}={v}" for k, v in d.items()),
+)
+def test_slice_options_run_through_the_lightcone(over):
+    """The progenitor samplers, a fitted photon-conservation correction and
+    a non-integer DIM/HII_DIM through run_lightcone (3 nodes, 8^3): a cone
+    with every slice finite and the global xH recorded at every node."""
+    inp = t21.InputParameters(random_seed=1).evolve_input_structs(
+        HII_DIM=8, DIM=16, BOX_LEN=16.0, SOURCE_MODEL="E-INTEGRAL", ZPRIME_STEP_FACTOR=1.2,
+        Z_HEAT_MAX=12.0).evolve_input_structs(**over).with_logspaced_redshifts(8.0, 12.0)
+    lc = t21.run_lightcone(inp, device="cpu")
+    assert len(inp.node_redshifts) >= 3
+    for name, cone in lc.lightcones.items():
+        assert cone.shape[:2] == (8, 8) and bool(torch.isfinite(cone).all()), name
+    xh = lc.global_quantities["neutral_fraction"]
+    assert len(xh) == len(inp.node_redshifts) and np.all((0.0 <= xh) & (xh <= 1.0))
