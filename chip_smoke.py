@@ -84,18 +84,20 @@ Phases, in order; any failure raises and the script exits non-zero:
      CUDA-event times of the displacement scatter;
   12. the sixth main path: the latest-discrete template (CHMF-SAMPLER with
      MASS-LIMITED progenitors, USE_TS_FLUCT, INHOMOGENEOUS) at 128^3 / 384^3
-     in a 192 Mpc box (its 1.5 Mpc cell) down the headline's 92 nodes, as
-     phase 9, from the default CUDA generators: the catalog chain's wall,
-     whole and by step, the halo counts, the host memory of the waiting catalogs, a
-     statistical gate on the z=5 grid sample (its count within 1% of the
+     in a 192 Mpc box (its 1.5 Mpc cell) down the headline's ladder cut to
+     z=8 (72 nodes), as phase 9, from the default CUDA generators: the
+     catalog chain's wall, whole and by step, the halo counts, the host
+     memory of the waiting catalogs, a
+     statistical gate on the z=8 grid sample (its count within 1% of the
      expected, each of 4 mass octaves within 5 sigma of the conditional MF),
      and the node nearest z=8 by stage (perturb_halo_catalog, the halo
      properties, the halo CIC with CUDA-event times, the sub-sampler grids,
      the XraySourceBox, Ts, ionize, Tb).
   13. the headline lightcone of phase 9 under Z-PHOTONCONS (run right after
-     phase 9, from its ICs): the calibration's coevals, z range and wall,
-     seconds per node, <xH> and <Tb> at z = 8, 6, 5 beside phase 9's, peak
-     memory, one deposit launch a node and a calibration step;
+     phase 9, from its ICs), its ladder cut to z=8: the calibration's
+     coevals, z range and wall, seconds per node, <xH> and <Tb> at z=8
+     beside phase 9's, peak memory, one deposit launch a node and a
+     calibration step;
   14. generate_coeval of the latest-discrete template at phase 12's box
      down to z=8, once with PARTITION and once with BINARY-SPLIT
      progenitors: the catalog chain's wall and parts, the halo counts, the
@@ -104,7 +106,14 @@ Phases, in order; any failure raises and the script exits non-zero:
      branches;
   15. run_global_evolution (the 0-D history) on the headline's inputs on
      the card against the same run on the CPU, which runs in a process of
-     its own beside the card's phases from the start.
+     its own beside the card's phases from the start;
+  16. (right after phase 13) the command line: `python -m py21cmfast_torch
+     template avail` and `run params` in subprocesses, then `cli.main` of
+     `run lightcone` on the headline's settings cut to z=10 (61 nodes, one
+     deposit launch each), its wall, launches, peak memory and output line;
+     the power spectrum of a z~8 chunk of phase 9's Tb cone on the card
+     against the CPU, the Thomson optical depth of phase 9's global xH, and
+     convert_halo_properties of 1e7 masses on the card against the CPU.
 The line before the last is a JSON object of kernel numbers; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero and
 prints no result.
@@ -1857,7 +1866,8 @@ def _without_stacks(ion):
     return dataclasses.replace(ion, unnormalised_nion=None, unnormalised_nion_mini=None)
 
 
-def lightcone_phase(kernels, inputs, ics, ics_s, tag, path, sample_z, setup_launches=None):
+def lightcone_phase(kernels, inputs, ics, ics_s, tag, path, sample_z, setup_launches=None,
+                    keep_tb_at=None):
     """A full-size lightcone through generate_lightcone with dvdr and RSDs,
     from ICs computed before (as bench.py hands them in); launch counts zeroed
     just before and read just after (one deposit launch per node, and
@@ -1865,8 +1875,11 @@ def lightcone_phase(kernels, inputs, ics, ics_s, tag, path, sample_z, setup_laun
     finalization's device-busy times and the stages of the nodes nearest each
     of `sample_z`, recomputed from the state the scroll handed them; that
     state is kept on the host meanwhile, so that it adds nothing to the run's
-    peak memory.  Returns the nodes, their <xH> and <Tb>, the seconds of
-    each node and the peak memory."""
+    peak memory.  Returns the nodes, their <xH> and <Tb>, the global xH the
+    cone recorded, the seconds of each node and the peak memory; with
+    `keep_tb_at` also a copy of the HII_DIM slices of the finished Tb cone
+    centred nearest that redshift, on the card, with its redshift and box
+    lengths."""
     import torch
 
     import py21cmfast_torch as p21
@@ -2033,6 +2046,15 @@ def lightcone_phase(kernels, inputs, ics, ics_s, tag, path, sample_z, setup_laun
         # nodes where nothing ionizes yet (ionization's early exit) report 0
         if not (np.isfinite(lw).all() and lw[-1] > 0 and mtm[-1] > 5.0 and (mtm[mtm != 0] > 5.0).all()):
             raise AssertionError(f"{tag}: no Lyman-Werner background or a turnover mass out of range")
+    kept = {}
+    if keep_tb_at is not None:
+        lc_z = np.asarray(lc.lc_redshifts)
+        n = so.HII_DIM
+        start = int(np.clip(np.argmin(np.abs(lc_z - keep_tb_at)) - n // 2, 0, len(lc_z) - n))
+        dist = np.asarray(lcr.lc_distances)
+        kept = dict(tb_chunk=cone["brightness_temp"][:, :, start:start + n].clone(),
+                    chunk_z=float(lc_z[start + n // 2]),
+                    chunk_lens=(so.box_len, so.box_len, float(n * (dist[1] - dist[0]))))
     del lc, cone
     torch.cuda.empty_cache()
     for i in sample_at:
@@ -2041,14 +2063,15 @@ def lightcone_phase(kernels, inputs, ics, ics_s, tag, path, sample_z, setup_laun
         _node_stages(inputs, ics, s, f"{tag}-stages")
         del s
         torch.cuda.empty_cache()
-    return dict(nodes=nodes, xh=xh, tb=tb, seconds=seconds, peak=peak)
+    return dict(nodes=nodes, xh=xh, tb=tb, gxh=np.asarray(gxh), seconds=seconds, peak=peak, **kept)
 
 
 def headline_phase(kernels, headline):
     """Phase 9: the headline lightcone from the ICs phase 3 computed; the
     stages of the node nearest z=8."""
     inputs, ics, ics_s = headline
-    return lightcone_phase(kernels, inputs, ics, ics_s, "headline", "lightcone", (8.0,))
+    return lightcone_phase(kernels, inputs, ics, ics_s, "headline", "lightcone", (8.0,),
+                           keep_tb_at=8.0)
 
 
 def minihalo_headline_phase(kernels):
@@ -2101,24 +2124,29 @@ def fixed_halos_headline_phase(kernels):
 
 
 # phase 12: the latest-discrete template at its 1.5 Mpc cell and DIM/HII_DIM = 3
-# down the headline's ladder, in a 192 Mpc box (the one cut: the catalogs of
-# all 92 nodes wait before the scroll, 2.4e9 halos and 64 GiB of host memory
-# here, ~8x that at 384 Mpc)
+# down the headline's ladder cut to z=8, in a 192 Mpc box (cut in volume: the
+# catalogs of every node wait before the scroll, 2.4e9 halos and 64 GiB of
+# host memory down to z=5, ~8x that at 384 Mpc; cut in depth to CUT_Z_END,
+# which drops the chain's largest catalogs, to keep the script within its
+# time once phase 16 joined it)
 DISCRETE_BOX = dict(HII_DIM=128, DIM=384, BOX_LEN=192.0, Z_HEAT_MAX=35.0, ZPRIME_STEP_FACTOR=1.02,
                     MINIMIZE_MEMORY=True)
-# the free host memory phase 12 needs: its waiting catalogs held 63.8 GiB on an
-# H100 host, and the process peaked at 70.1 GiB resident; checked before phase 1
-DISCRETE_HOST_GIB = 72.0
+# the free host memory phases 12 and 14 need: cut to z=8, the waiting catalogs
+# held 17.6 GiB (phase 12) and 20.7 GiB (phase 14's PARTITION chain) on an
+# H100 host, and the process peaked at 27.3 GiB resident (down to z=5 phase 12
+# had held 63.8 GiB, 70.1 GiB resident); checked before phase 1
+DISCRETE_HOST_GIB = 40.0
 
 
 def check_host_memory():
     """Fail at once, not after the earlier phases, when the host has less free
-    memory than phase 12's waiting catalogs and the rest of the process need."""
+    memory than the waiting catalogs of phases 12 and 14 and the rest of the
+    process need."""
     free = os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE") / 2**30
-    print(f"[host] {free:.3f} GiB of memory free; phase 12 needs {DISCRETE_HOST_GIB} GiB")
+    print(f"[host] {free:.3f} GiB of memory free; phases 12 and 14 need {DISCRETE_HOST_GIB} GiB")
     if free < DISCRETE_HOST_GIB:
-        raise SystemExit(f"chip_smoke: {free:.1f} GiB of host memory free, phase 12 needs "
-                         f"{DISCRETE_HOST_GIB} GiB for the catalogs of its 92 nodes")
+        raise SystemExit(f"chip_smoke: {free:.1f} GiB of host memory free, phases 12 and 14 "
+                         f"need {DISCRETE_HOST_GIB} GiB for the catalogs of their nodes")
 
 
 def _octave_expectation(inputs, z, h, edges):
@@ -2250,12 +2278,13 @@ def _print_chain(tag, rec):
 def discrete_headline_phase(kernels):
     """Phase 12, the sixth main path: the latest-discrete lightcone
     (CHMF-SAMPLER, MASS-LIMITED progenitors, USE_TS_FLUCT, INHOMOGENEOUS)
-    at 128^3 / 384^3 in 192 Mpc down the headline's 92 nodes, from the
-    default CUDA generators, through lightcone_phase.  Its catalog chain is
+    at 128^3 / 384^3 in 192 Mpc down the headline's ladder cut to
+    CUT_Z_END (72 nodes), from the default CUDA generators, through
+    lightcone_phase.  Its catalog chain is
     timed whole (one synchronised wall) and by step (DexM, the grid sampler,
     the progenitors of each node, the moves between the card and the host),
     with the halo counts and the host
-    memory the waiting catalogs hold.  A statistical gate on the z=5 grid
+    memory the waiting catalogs hold.  A statistical gate on the z=8 grid
     sample: its count within 1% of the expected sum(n_exp) (plus one halo
     per collapsed cell), and its count in each of 4 mass octaves from
     SAMPLER_MIN_MASS within 5 sigma of the conditional MF's expectation."""
@@ -2265,7 +2294,7 @@ def discrete_headline_phase(kernels):
 
     inputs = p21.InputParameters.from_template(
         DISCRETE_TEMPLATE, random_seed=HEADLINE_SEED
-    ).evolve_input_structs(**DISCRETE_BOX).with_logspaced_redshifts(HEADLINE_Z_END)
+    ).evolve_input_structs(**DISCRETE_BOX).with_logspaced_redshifts(CUT_Z_END)
     so = inputs.simulation_options
     if not inputs.matter_options.source_model_uses_halo_sampler:
         raise AssertionError(f"{DISCRETE_TEMPLATE} does not sample halos")
@@ -2276,7 +2305,8 @@ def discrete_headline_phase(kernels):
         lightcone_phase(kernels, inputs, ics, ics_s, "latest-discrete", "discrete_lightcone", (8.0,))
     _print_chain("latest-discrete", chain)
 
-    # the statistical gate on the z=5 grid sample (the collapsed cells' halos last)
+    # the statistical gate on the lowest node's grid sample (the collapsed
+    # cells' halos last)
     gate = chain["gate"]
     h, masses = gate["h"], gate["masses"]
     n_coll = int(h["collapsed"].sum())
@@ -2292,16 +2322,18 @@ def discrete_headline_phase(kernels):
           f"{so.SAMPLER_MIN_MASS:.0e}: {got.astype(int).tolist()} against the CMF's "
           f"{np.round(expect, 1).tolist()}, ({np.round(sig, 3).tolist()}) sigma (limit 5)")
     if not (abs(n / n_exp - 1) <= 0.01 and np.all(np.abs(sig) <= 5.0)):
-        raise AssertionError("the z=5 grid sample fails its statistical gate")
+        raise AssertionError(f"the z={gate['z']} grid sample fails its statistical gate")
 
 
 def photoncons_headline_phase(kernels, headline, base):
     """Phase 13: the headline lightcone under Z-PHOTONCONS, from the ICs
     phase 3 computed, launch counts zeroed just before and read just after:
-    one deposit launch a node and one a calibration step.  The calibration
-    (its coevals, their z range and wall, the analytic history beside it),
-    then <xH> and <Tb> at the nodes nearest z = 8, 6 and 5 beside phase 9's
-    (`base`), from the same seed and ICs."""
+    one deposit launch a node and one a calibration step.  The headline's
+    box and ladder are cut to CUT_Z_END (72 of its 92 nodes, the slowest 20
+    dropped), which keeps the script within its time since phase 16 joined
+    it.  The calibration (its coevals, their z range and wall, the analytic
+    history beside it), then <xH> and <Tb> at z=8 beside phase 9's (`base`)
+    at its node nearest z=8, from the same seed and ICs."""
     import torch
 
     from py21cmfast_torch.drivers import coeval
@@ -2309,7 +2341,8 @@ def photoncons_headline_phase(kernels, headline, base):
     from py21cmfast_torch.ops import deposit
 
     inputs, ics, _ = headline
-    inputs = inputs.evolve_input_structs(PHOTON_CONS_TYPE="Z-PHOTONCONS")
+    inputs = inputs.evolve_input_structs(PHOTON_CONS_TYPE="Z-PHOTONCONS").with_logspaced_redshifts(
+        CUT_Z_END)
     setup, calibrate = coeval.setup_photon_cons, photoncons.calibrate_photon_cons
     rec = {}
 
@@ -2341,14 +2374,159 @@ def photoncons_headline_phase(kernels, headline, base):
           f"{z_cal[-1]:.3f} in {rec['calibration']:.2f} s, the analytic history and deltaz the "
           f"rest; then median {np.median(later):.4f} s a node (spread {later.min():.4f} - "
           f"{later.max():.4f}); peak memory {run['peak']:.3f} GiB")
-    for z in (8.0, 6.0, 5.0):
-        i = int(np.argmin(np.abs(np.asarray(run["nodes"]) - z)))
-        zi = run["nodes"][i]
-        print(f"[z-photoncons] z={zi:.4f} (computed at z={state.adjusted_redshift(zi):.4f}): <xH> "
-              f"{run['xh'][i]:.6f}, <Tb> {run['tb'][i]:.5f} mK; without the correction (phase 9) "
-              f"<xH> {base['xh'][i]:.6f}, <Tb> {base['tb'][i]:.5f} mK")
-    if not (state.adjusted_redshift(8.0) < 8.0 and run["nodes"] == base["nodes"]):
+    zi, j = run["nodes"][-1], int(np.argmin(np.abs(np.asarray(base["nodes"]) - CUT_Z_END)))
+    print(f"[z-photoncons] {len(run['nodes'])} nodes to z={zi:.4f} (computed at "
+          f"z={state.adjusted_redshift(zi):.4f}): <xH> {run['xh'][-1]:.6f}, <Tb> {run['tb'][-1]:.5f} "
+          f"mK; without the correction (phase 9, z={base['nodes'][j]:.4f}) <xH> "
+          f"{base['xh'][j]:.6f}, <Tb> {base['tb'][j]:.5f} mK")
+    if not (state.adjusted_redshift(8.0) < 8.0 and zi == CUT_Z_END):
         raise AssertionError("Z-PHOTONCONS shifted no node of the headline lightcone")
+    torch.cuda.empty_cache()
+
+
+# phase 16: the command line on the headline's settings (bench.py:73-91),
+# its ladder cut to z=10 (61 nodes)
+CLI_Z_END = 10.0
+CLI_ARGS = ["run", "lightcone", "--seed", str(HEADLINE_SEED), "--min-z", str(CLI_Z_END),
+            "--max-z", "35"] + [a for kv in (
+                "HII_DIM=256", "DIM=768", "BOX_LEN=384", "SOURCE_MODEL=E-INTEGRAL",
+                "USE_TS_FLUCT=true", "RECOMB_MODEL=inhomogeneous", "R_BUBBLE_MAX=50",
+                "USE_EXP_FILTER=false", "CELL_RECOMB=false", "Z_HEAT_MAX=35",
+                "ZPRIME_STEP_FACTOR=1.02", "MINIMIZE_MEMORY=true") for a in ("-p", kv)]
+# card against CPU, of each value: the power spectrum's bins and the halo
+# properties (float32 FFTs and transcendentals of two libraries)
+PS_REL = 1e-5
+HALO_PROPS_REL = 1e-5
+HALO_PROPS_N = 10_000_000
+
+
+def _cli_subprocesses(commands):
+    """`python -m py21cmfast_torch <args>` for each of `commands`, each in a
+    process of its own, all started together from the checkout's root: for
+    each its exit code, its output and its errors, and the wall of all."""
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, "-m", "py21cmfast_torch", *args],
+                              cwd=os.path.dirname(os.path.abspath(__file__)),
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for args in commands]
+    outs = []
+    for proc in procs:
+        try:
+            out, err = proc.communicate(timeout=300)
+        finally:
+            proc.kill()
+        outs.append((proc.returncode, out, err))
+    return outs, time.perf_counter() - t0
+
+
+def cli_phase(kernels, base):
+    """Phase 16: the command line and the surroundings of the port.
+    `python -m py21cmfast_torch template avail` and `run params` in
+    subprocesses of their own, run together (this machine has no h5py and no matplotlib,
+    which the package imports only where a command needs them); then
+    `cli.main` runs the headline lightcone to z=10 in this process, launch
+    counts zeroed just before and read just after (one deposit launch a
+    node); then on phase 9's cone (`base`): the power spectrum of its z~8
+    chunk on the card against the CPU, and the Thomson optical depth of its
+    global xH history; then the halo properties of HALO_PROPS_N log-uniform
+    masses on the card against the CPU, from draws made on the CPU."""
+    import contextlib
+    import io
+
+    import torch
+
+    import py21cmfast_torch as p21
+    from py21cmfast_torch import cfuncs, cli
+    from py21cmfast_torch.ops import deposit, ps
+
+    commands = (["template", "avail"], ["run", "params", "--template", "latest"])
+    outs, wall = _cli_subprocesses(commands)
+    print(f"[cli] {len(commands)} subprocesses of python -m py21cmfast_torch, run together: "
+          f"{wall:.2f} s")
+    for args, (code, out, err) in zip(commands, outs):
+        lines = out.splitlines()
+        print(f"[cli] python -m py21cmfast_torch {' '.join(args)}: exit {code}, {len(lines)} "
+              f"lines, first {lines[0] if lines else ''!r}")
+        if code != 0 or not lines:
+            raise AssertionError(f"python -m py21cmfast_torch {' '.join(args)} failed:\n{out}{err}")
+
+    wrappers = {"cic_deposit_swept": deposit.cic_deposit_swept}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = io.StringIO()
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        lc = cli.main(CLI_ARGS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: w.launches for name, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    line = [ln for ln in out.getvalue().splitlines() if ln.startswith("lightcone:")][-1]
+    nodes = lc.node_redshifts
+    print(f"[cli] 21cmfast-torch {' '.join(CLI_ARGS)}")
+    print(f"[cli] its output: {line}")
+    print(f"[cli] {len(nodes)} nodes {nodes[0]:.3f} -> {nodes[-1]:.3f} in {wall:.2f} s on the card "
+          f"(ICs, scroll and finalization; {wall / len(nodes):.3f} s a node in all); launches "
+          f"{launches}; peak memory {peak:.3f} GiB")
+    for k in kernels:
+        k["launches_by_path"]["cli_lightcone"] = launches[k["name"]]
+        k["launches"] = sum(k["launches_by_path"].values())
+        if launches[k["name"]] < 1:
+            raise AssertionError(f"the command line's lightcone never launched {k['name']}")
+    lo, hi = (float(v) for v in line.split("Tb range [")[1].split("]")[0].split(","))
+    bt = lc.brightness_temp
+    if not (len(nodes) == 61 and launches["cic_deposit_swept"] == len(nodes)):
+        raise AssertionError(f"expected 61 nodes and as many deposit launches: {len(nodes)}, {launches}")
+    if not (line.startswith("lightcone: shape=(256, 256, ") and np.isfinite([lo, hi]).all() and lo < hi
+            and bt.is_cuda and bool(torch.isfinite(bt).all())):
+        raise AssertionError(f"the command line's lightcone is not a finite 256^2 cone: {line}")
+    del lc, bt
+    torch.cuda.empty_cache()
+
+    chunk, lens = base["tb_chunk"], base["chunk_lens"]
+    (k_g, p_g, n_g), t_g = _sync_time(lambda: ps.power_spectrum_1d(chunk, lens))
+    cpu_chunk = chunk.cpu()
+    (k_c, p_c, n_c), t_c = _sync_time(lambda: ps.power_spectrum_1d(cpu_chunk, lens))
+    good = np.isfinite(p_c) & (n_c > 0)
+    rel = np.abs(p_g[good] - p_c[good]) / np.abs(p_c[good])
+    print(f"[cli] P(k) of phase 9's Tb cone, {tuple(chunk.shape)} slices centred at "
+          f"z={base['chunk_z']:.3f} ({lens[2]:.1f} Mpc along the line of sight), 16 log bins: "
+          f"{t_g * 1e3:.2f} ms on the card, {t_c * 1e3:.2f} ms on the CPU; max rel diff "
+          f"{rel.max():.3e} (limit {PS_REL:.0e}); P {np.round(p_g[good], 4).tolist()} mK^2 Mpc^3 at "
+          f"k {np.round(k_g[good], 4).tolist()} /Mpc")
+    if not (good.sum() >= 8 and np.array_equal(n_g, n_c) and np.allclose(k_g[good], k_c[good], rtol=1e-12)
+            and np.all(rel <= PS_REL)):
+        raise AssertionError("the power spectrum on the card disagrees with the CPU's")
+
+    inputs = _headline_inputs()
+    tau = cfuncs.compute_tau(inputs, base["nodes"], base["gxh"])
+    print(f"[cli] compute_tau of phase 9's global xH, {len(base['nodes'])} nodes z "
+          f"{base['nodes'][0]:.3f} -> {base['nodes'][-1]:.3f} (xH {base['gxh'][0]:.4f} -> "
+          f"{base['gxh'][-1]:.4f}): tau_e = {tau:.6f}")
+    if not 0.0 < tau < 0.2:
+        raise AssertionError(f"tau_e = {tau} is out of range")
+
+    disc = p21.InputParameters.from_template(DISCRETE_TEMPLATE, random_seed=HEADLINE_SEED)
+    rng = np.random.default_rng(HEADLINE_SEED)
+    masses = np.exp(rng.uniform(np.log(1e8), np.log(1e12), HALO_PROPS_N)).astype(np.float32)
+    rngs = rng.standard_normal((3, HALO_PROPS_N)).astype(np.float32)
+    props_g, t_g = _sync_time(lambda: cfuncs.convert_halo_properties(disc, 8.0, masses, *rngs))
+    props_c, t_c = _sync_time(
+        lambda: cfuncs.convert_halo_properties(disc, 8.0, masses, *rngs, device="cpu"))
+    errs = {}
+    for name, c in props_c.items():
+        g = props_g[name]
+        scale = np.maximum(np.abs(c), np.finfo(np.float32).tiny)
+        errs[name] = float(np.max(np.abs(g.astype(np.float64) - c) / scale))
+    print(f"[cli] convert_halo_properties of {HALO_PROPS_N:.0e} masses 1e8-1e12 Msun at z=8 "
+          f"({DISCRETE_TEMPLATE}): {t_g * 1e3:.1f} ms on the card (with the copies), "
+          f"{t_c * 1e3:.1f} ms on the CPU; max rel diff per property "
+          f"{ {k: f'{v:.2e}' for k, v in errs.items()} } (limit {HALO_PROPS_REL:.0e})")
+    if not all(np.isfinite(props_g[k]).all() for k in props_g) or max(errs.values()) > HALO_PROPS_REL:
+        raise AssertionError("the halo properties on the card disagree with the CPU's")
     torch.cuda.empty_cache()
 
 
@@ -2582,6 +2760,9 @@ def main():
         base = headline_phase(kernels, headline)
         photoncons_headline_phase(kernels, headline, base)
         del headline
+        torch.cuda.empty_cache()
+        cli_phase(kernels, base)
+        del base
         torch.cuda.empty_cache()
         minihalo_headline_phase(kernels)
         torch.cuda.empty_cache()

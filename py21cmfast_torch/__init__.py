@@ -14,9 +14,14 @@ sampler, mass- or number-limited progenitors, the perturbed catalog and its
 HaloBox, with the MASS-LIMITED, NUMBER-LIMITED, PARTITION and BINARY-SPLIT
 progenitor samplers) run through the same entry points, as do the three
 photon-conservation corrections (`setup_photon_cons`) and the global 0-D
-history (`run_global_evolution`).  What is not ported yet (the output
-cache, a device mesh) raises NotImplementedError naming the ROADMAP item
-that brings it.  The swept CIC deposit is a hand-written CUDA kernel
+history (`run_global_evolution`).  Around them: the HDF5 files of the boxes
+and the output cache from which a run resumes (`io`; they need the optional
+h5py), the command line (`21cmfast-torch`, `python -m py21cmfast_torch`),
+the low-level `cfuncs`, power spectra (`ops.ps`), the UV luminosity
+function, the CLASS and Boltzmann helpers, `plotting` (matplotlib, optional)
+and the `wrapper` layout of the reference.  What is not ported yet (a device
+mesh) raises NotImplementedError naming the ROADMAP item that brings it.
+The swept CIC deposit is a hand-written CUDA kernel
 (`csrc/cic_deposit.cu`), built with nvcc at its first use.
 """
 
@@ -26,14 +31,19 @@ from pathlib import Path as _Path
 
 _DATA_PATH = _Path(__file__).parent / "_data"
 
-from . import interop, lightconers
+from . import interop, lightconers, plotting, wrapper
 from ._cfg import config
+from ._logging import configure_logging
 from ._templates import create_params_from_template, list_templates, write_template
+from .cfuncs import compute_luminosity_function, compute_tau
+from .cosmology.classy_interface import compute_rms, run_classy
 from .drivers.coeval import Coeval, generate_coeval, run_coeval
 from .drivers.global_evolution import GlobalEvolution, run_global_evolution
 from .drivers.lightcone import LightCone, generate_lightcone, run_lightcone
 from .drivers.single_field import interp_halo_boxes
 from .exceptions import InfinityOrNaNError, ParameterError
+from .io.caching import CacheConfig, OutputCache, RunCache
+from .io.h5 import read_inputs, read_output_struct, write_output_to_hdf5
 from .inputs import (
     AstroOptions,
     AstroParams,
@@ -72,6 +82,7 @@ __all__ = [
     "AstroOptions",
     "AstroParams",
     "BrightnessTemp",
+    "CacheConfig",
     "Coeval",
     "CosmoParams",
     "GlobalEvolution",
@@ -84,10 +95,12 @@ __all__ = [
     "LightCone",
     "Lightconer",
     "MatterOptions",
+    "OutputCache",
     "ParameterError",
     "PerturbedField",
     "PerturbedHaloCatalog",
     "RectilinearLightconer",
+    "RunCache",
     "SimulationOptions",
     "TsBox",
     "XraySourceBox",
@@ -96,9 +109,13 @@ __all__ = [
     "compute_halo_grid",
     "compute_initial_conditions",
     "compute_ionization_field",
+    "compute_luminosity_function",
+    "compute_rms",
     "compute_spin_temperature",
+    "compute_tau",
     "compute_xray_source_field",
     "config",
+    "configure_logging",
     "create_params_from_template",
     "determine_halo_catalog",
     "generate_coeval",
@@ -110,10 +127,16 @@ __all__ = [
     "list_templates",
     "perturb_field",
     "perturb_halo_catalog",
+    "plotting",
+    "read_inputs",
+    "read_output_struct",
     "register_class_transfer",
+    "run_classy",
     "run_coeval",
     "run_global_evolution",
     "run_lightcone",
     "setup_photon_cons",
+    "wrapper",
+    "write_output_to_hdf5",
     "write_template",
 ]

@@ -1,8 +1,8 @@
 """Coeval cubes: the snapshot pipeline, evolved down the node ladder.
 
 Equivalent of reference drivers/coeval.py:521-992 (`generate_coeval` /
-`run_coeval`), following py21cmfast_tpu/drivers/coeval.py without the cache:
-the ICs are computed once, then the union of the node redshifts and the
+`run_coeval`), following py21cmfast_tpu/drivers/coeval.py: the ICs are
+computed once, then the union of the node redshifts and the
 requested ones is visited highest first.  Each node runs perturb ->
 [HaloBox] -> Ts -> prefetch of the next node's tables -> ionize -> Tb; the
 ionized box and the spin-temperature state are handed to the next node, and
@@ -15,6 +15,12 @@ gridded.  The catalogs are sampled before the scroll, ascending in z
 (reference evolve_halos, coeval.py:435), and wait on the host until their
 node.  Under a PHOTON_CONS_TYPE the photon-conservation calibration runs
 first, and every ionization step reads its state.
+
+With an `OutputCache` every computed box is written, in full, once the
+node's fields are checked, and a later run with the same inputs resumes:
+the leading nodes whose chain-coupling boxes are all cached (`RunCache`)
+are read back onto the run's device instead of computed, yielded where
+requested, and handed down the chain exactly as computed ones are.
 """
 
 from __future__ import annotations
@@ -23,9 +29,11 @@ import dataclasses
 
 import numpy as np
 
-from .._device import not_in_slice, resolve_device
+from .._device import resolve_device
 from ..exceptions import check_nonfinite
 from ..inputs import InputParameters
+from ..io import h5 as h5io
+from ..io.caching import CacheConfig, OutputCache, RunCache
 from ..models import ics as ics_module
 from ..models import halobox as halobox_module
 from ..models import halos as halos_module
@@ -112,16 +120,26 @@ def generate_coeval(
     inputs: InputParameters,
     out_redshifts=(),
     initial_conditions: InitialConditions | None = None,
-    cache=None,
+    cache: OutputCache | None = None,
+    cache_config: CacheConfig | None = None,
+    regenerate: bool = False,
     *,
     device="cuda",
 ):
     """Yield a Coeval at each requested redshift, highest first, evolving
     down the node-redshift ladder (reference _redshift_loop_generator,
-    coeval.py:749).  Every snapshot's fields are checked for NaN/Inf."""
+    coeval.py:749).  Every snapshot's fields are checked for NaN/Inf.
+
+    With an `OutputCache` as `cache`, the boxes that `cache_config` names
+    (all by default) are written, and the scroll resumes after the last
+    fully cached node (reference coeval.py:700-747); `regenerate=True`
+    recomputes everything while still writing."""
     dev = resolve_device(device)
     if cache is not None:
-        not_in_slice("the output cache", 16)
+        if not isinstance(cache, OutputCache):
+            raise TypeError(f"cache must be an OutputCache, not {type(cache).__name__}")
+        h5io.require_h5py()
+        cache_config = cache_config or CacheConfig()
     ao = inputs.astro_options
     mo = inputs.matter_options
     out_redshifts = [float(z) for z in np.atleast_1d(np.asarray(out_redshifts))]
@@ -131,8 +149,26 @@ def generate_coeval(
 
     needs_evolution = ao.USE_TS_FLUCT or ao.uses_recombination or inputs.node_redshifts
 
+    def cache_write(box, z=None):
+        if cache is not None and box is not None and cache_config.writes(type(box).__name__):
+            cache.write(box, inputs, z)
+
     if initial_conditions is None:
-        initial_conditions = ics_module.compute_initial_conditions(inputs, device=dev)
+        if cache is not None and not regenerate:
+            initial_conditions = cache.read(InitialConditions, inputs, device=dev)
+        if initial_conditions is None:
+            initial_conditions = ics_module.compute_initial_conditions(inputs, device=dev)
+            cache_write(initial_conditions)
+
+    # resume: the leading nodes (highest z first) whose chain-coupling boxes
+    # are all cached
+    resumed = set()
+    if cache is not None and not regenerate and needs_evolution:
+        rc = RunCache(cache, inputs)
+        for z in all_z:
+            if not rc.is_complete_at(z):
+                break
+            resumed.add(z)
 
     # photon non-conservation (reference _setup_ics_and_pfs_for_scrolling):
     # the calibration runs once per inputs and device, before the halo chain
@@ -142,11 +178,14 @@ def generate_coeval(
     sampler = mo.source_model_uses_halo_sampler
     # the halo chain, ascending in z: DexM and the grid sampler at the lowest
     # node, then the progenitors of each catalog at the next node up; the
-    # catalogs of the nodes to come wait on the host
+    # catalogs of the nodes to come wait on the host.  Resumed nodes are the
+    # high-z end of the chain and need no catalog.
     catalogs = {}
     if sampler:
         cat = None
         for z in sorted(all_z):
+            if z in resumed:
+                break
             cat = halos_module.determine_halo_catalog(
                 z, inputs, initial_conditions, previous_catalog=cat, device=dev)
             catalogs[z] = cat.to("cpu")
@@ -158,6 +197,32 @@ def generate_coeval(
     ts_state = None  # the previous TsBox (its J_21_LW sets the LW feedback)
     halobox_nodes = []  # (z, trimmed HaloBox) history for the XraySourceBox shells
     for i, z in enumerate(all_z):
+        wanted = (not out_redshifts) or any(abs(z - oz) < 1e-8 for oz in out_redshifts)
+        if z in resumed:
+            # read the node's boxes back instead of computing them
+            pf = cache.read(PerturbedField, inputs, z, device=dev)
+            ion = cache.read(IonizedBox, inputs, z, device=dev)
+            ts = cache.read(TsBox, inputs, z, device=dev) if ao.USE_TS_FLUCT else None
+            halobox = cache.read(HaloBox, inputs, z, device=dev)
+            if halobox is not None and ao.USE_TS_FLUCT:
+                halobox_nodes.append((z, _slim_history_box(halobox)))
+            ts_state = ts if ts is not None else ts_state
+            if wanted:
+                yield Coeval(
+                    redshift=z,
+                    initial_conditions=initial_conditions,
+                    perturbed_field=pf,
+                    ionized_box=ion,
+                    brightness_temperature=cache.read(BrightnessTemp, inputs, z, device=dev),
+                    spin_temp=ts,
+                    halobox=halobox,
+                )
+            prev_ion = _slim_chain_ion(ion, keep_xh=halobox is not None) if needs_evolution else None
+            prev_pf = _slim_chain_pf(pf, needed=ao.USE_MINI_HALOS and not lagrangian)
+            prev_z = z
+            del ion, pf, ts, halobox
+            continue
+
         pf = perturb.perturb_field(z, inputs, initial_conditions, device=dev)
 
         halobox = None
@@ -214,8 +279,10 @@ def generate_coeval(
         prev_ion = prev_pf = None
         tb = brightness_temperature(inputs, ion, pf, spin_temp=ts, device=dev)
         check_nonfinite(z, pf, halobox, ts, ion, tb)
+        for box in (pf, halobox, ts, ion, tb):
+            cache_write(box, z)
 
-        if (not out_redshifts) or any(abs(z - oz) < 1e-8 for oz in out_redshifts):
+        if wanted:
             yield Coeval(
                 redshift=z,
                 initial_conditions=initial_conditions,
@@ -238,7 +305,9 @@ def run_coeval(
     inputs: InputParameters,
     out_redshifts,
     initial_conditions: InitialConditions | None = None,
-    cache=None,
+    cache: OutputCache | None = None,
+    cache_config: CacheConfig | None = None,
+    regenerate: bool = False,
     *,
     device="cuda",
 ):
@@ -246,7 +315,8 @@ def run_coeval(
     single = np.isscalar(out_redshifts)
     coevals = list(
         generate_coeval(
-            inputs, np.atleast_1d(out_redshifts), initial_conditions, cache, device=device
+            inputs, np.atleast_1d(out_redshifts), initial_conditions, cache,
+            cache_config, regenerate, device=device,
         )
     )
     return coevals[0] if single and len(coevals) == 1 else coevals

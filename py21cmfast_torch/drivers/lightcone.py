@@ -7,7 +7,8 @@ straight into the cone on the run's device, record the global quantities
 (one stacked tensor of means a node, fetched once at the end), and finally
 apply the velocity-gradient correction and RSDs along the line of sight on
 the same device.  A checkpoint file (HDF5, the JAX package's layout) lets an
-interrupted run restart after its last completed node.
+interrupted run restart after its last completed node, and an output cache
+handed to the coeval scroll lets it skip the nodes already computed.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import numpy as np
 import torch
 
 from .. import rsds as rsds_module
-from .._device import not_in_slice, resolve_device
+from .._device import resolve_device
 from ..inputs import InputParameters
 from ..lightconers import Lightconer, RectilinearLightconer
 from ..outputs import InitialConditions
@@ -132,13 +133,13 @@ def generate_lightcone(
     """Yield (z, coeval, partial LightCone) per node; the final yield,
     (None, None, lc), carries the finished cone.
 
-    `checkpoint_path` checkpoints the partial lightcone each node (slices,
-    global quantities, `_last_completed_node`) so an interrupted run restarts
-    after the last completed node (reference lightcone.py:223-248 and
-    411-463); h5py is imported only then."""
+    `cache` (an OutputCache) is forwarded to the coeval scroll, which writes
+    every box and resumes from the cached nodes.  `checkpoint_path`
+    checkpoints the partial lightcone each node (slices, global quantities,
+    `_last_completed_node`) so an interrupted run restarts after the last
+    completed node (reference lightcone.py:223-248 and 411-463); h5py is
+    imported only for these two."""
     dev = resolve_device(device)
-    if cache is not None:
-        not_in_slice("the output cache", 16)
     if not inputs.node_redshifts:
         if min_redshift is None:
             raise ValueError("need node_redshifts or min_redshift")
@@ -184,7 +185,7 @@ def generate_lightcone(
     prev_coeval = None
     for i_node, coeval in enumerate(
         generate_coeval(inputs, out_redshifts=node_z,
-                        initial_conditions=initial_conditions, device=dev)
+                        initial_conditions=initial_conditions, cache=cache, device=dev)
     ):
         if i_node > last_completed:
             if global_quantities:

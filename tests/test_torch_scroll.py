@@ -208,10 +208,23 @@ def test_no_evolution_means_no_coupling(calls):
          "CHMF-SAMPLER-raises", "CHMF-SAMPLER+NUMBER-LIMITED+minihalos", "PARTITION-raises",
          "Z-PHOTONCONS-raises", "BINARY-SPLIT", "cache-raises", "mesh-raises"],
 )
-def test_evolving_options_outside_the_slice_raise(over, item):
+def test_evolving_options_outside_the_slice_raise(over, item, tmp_path):
     """Every evolving option runs down the node ladder; what is still not
-    ported (the output cache, item 16; a device mesh, item 17) raises."""
+    ported (a device mesh, item 17) raises.  The output cache (item 16) runs:
+    a scroll with one writes every node, a second run resumes from it to the
+    same boxes, and a cache that is not an OutputCache raises."""
     inp = _small_inputs(**over).with_logspaced_redshifts(8.0, 12.0)
+    if item == 16:
+        cache = t21.OutputCache(tmp_path)
+        first = t21.run_coeval(inp, 8.0, cache=cache, device="cpu")
+        assert t21.RunCache(cache, inp).last_complete_node() == len(inp.node_redshifts) - 1
+        again = t21.run_coeval(inp, 8.0, cache=cache, device="cpu")
+        np.testing.assert_array_equal(again.brightness_temp.numpy(), first.brightness_temp.numpy())
+        np.testing.assert_array_equal(again.spin_temp.spin_temperature.numpy(),
+                                      first.spin_temp.spin_temperature.numpy())
+        with pytest.raises(TypeError, match="OutputCache"):
+            t21.run_coeval(inp, 8.0, cache=object(), device="cpu")
+        return
     if item is None:
         out = t21.run_coeval(inp, 8.0, device="cpu")
         if inp.astro_options.PHOTON_CONS_TYPE != "NO-PHOTONCONS":
@@ -242,7 +255,4 @@ def test_evolving_options_outside_the_slice_raise(over, item):
                 assert float(out.ionized_box.log10_Mturnover_MINI_ave) > 5.0
         return
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 item {item}"):
-        if item == 16:
-            t21.run_coeval(inp, 8.0, cache=object(), device="cpu")
-        else:
-            tsp.compute_spin_temperature(8.0, inp, None, mesh=object(), device="cpu")
+        tsp.compute_spin_temperature(8.0, inp, None, mesh=object(), device="cpu")

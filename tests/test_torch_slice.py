@@ -303,7 +303,7 @@ RUN_ON_CPU = (
     dict(DIM=20),
 )
 # what still raises, by the ROADMAP item that brings it
-STILL_RAISING = {"cache": 16, "mesh": 17}
+STILL_RAISING = {"mesh": 17}
 
 
 @pytest.mark.parametrize(
@@ -325,21 +325,27 @@ STILL_RAISING = {"cache": 16, "mesh": 17}
     ],
     ids=lambda d: ",".join(f"{k}={v}" for k, v in d.items()),
 )
-def test_options_outside_the_slice_raise(over):
-    """What is not ported raises, naming its ROADMAP item: the output cache
-    (item 16) and a device mesh (item 17).  The minihalo and v_cb options
-    (item 11), L-INTEGRAL (item 12), IONISE_ENTIRE_SPHERE (item 6), the halo
-    samplers CHMF-SAMPLER and DEXM-ESF with every progenitor method (item
-    13; the PARTITION and BINARY-SPLIT cases down a node ladder, so that
-    progenitors are sampled), Z-PHOTONCONS (item 14) and a non-integer
-    DIM/HII_DIM (item 5) run on the CPU and give finite boxes."""
+def test_options_outside_the_slice_raise(over, tmp_path):
+    """What is not ported raises, naming its ROADMAP item: a device mesh
+    (item 17).  The minihalo and v_cb options (item 11), L-INTEGRAL (item
+    12), IONISE_ENTIRE_SPHERE (item 6), the halo samplers CHMF-SAMPLER and
+    DEXM-ESF with every progenitor method (item 13; the PARTITION and
+    BINARY-SPLIT cases down a node ladder, so that progenitors are sampled),
+    Z-PHOTONCONS (item 14), a non-integer DIM/HII_DIM (item 5) and the output
+    cache (item 16, which writes the run's boxes) run on the CPU and give
+    finite boxes."""
     inp = t21.InputParameters(random_seed=1).evolve_input_structs(
         HII_DIM=8, DIM=16, BOX_LEN=16.0, SOURCE_MODEL="E-INTEGRAL").evolve_input_structs(
-        **{k: v for k, v in over.items() if k not in STILL_RAISING})
+        **{k: v for k, v in over.items() if k not in ("cache", "mesh")})
     if "SAMPLE_METHOD" in over:
         inp = inp.with_logspaced_redshifts(8.0, 12.0)
-    if over in RUN_ON_CPU:
-        out = t21.run_coeval(inp, 8.0, device="cpu")
+    if over in RUN_ON_CPU or "cache" in over:
+        cache = t21.OutputCache(tmp_path) if "cache" in over else None
+        out = t21.run_coeval(inp, 8.0, cache=cache, device="cpu")
+        if cache is not None:
+            assert cache.exists(t21.InitialConditions, inp)
+            assert all(cache.exists(c, inp, 8.0)
+                       for c in ("PerturbedField", "IonizedBox", "BrightnessTemp"))
         ion = out.ionized_box
         assert np.isfinite(ion.neutral_fraction.numpy()).all()
         assert np.isfinite(out.brightness_temperature.brightness_temp.numpy()).all()
@@ -365,39 +371,56 @@ def test_options_outside_the_slice_raise(over):
         return
     (what,) = over
     with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 item {STILL_RAISING[what]}"):
-        if what == "cache":
-            t21.run_coeval(inp, 8.0, cache=object(), device="cpu")
-        else:
-            t21.compute_xray_source_field(8.0, inp, [], mesh=object(), device="cpu")
+        t21.compute_xray_source_field(8.0, inp, [], mesh=object(), device="cpu")
 
 
-def test_cache_and_node_scroll_raise():
-    """The cache still raises, with and without a node ladder; the node
-    scroll itself runs (tests/test_torch_scroll.py, with Lagrangian source
-    boxes tests/test_torch_fixed_halos.py), and a device mesh handed to its Ts
+def test_cache_and_node_scroll_raise(tmp_path):
+    """A cache that is not an OutputCache raises, with and without a node
+    ladder, before anything is computed; an OutputCache runs with both
+    (tests/test_torch_io.py resumes from it).  The node scroll itself runs
+    (tests/test_torch_scroll.py, with Lagrangian source boxes
+    tests/test_torch_fixed_halos.py), and a device mesh handed to its Ts
     step or to the XraySourceBox raises."""
     from py21cmfast_torch.models import spintemp as tspin
 
     inp = t21.InputParameters(random_seed=1).evolve_input_structs(
         HII_DIM=8, DIM=16, BOX_LEN=16.0, SOURCE_MODEL="E-INTEGRAL")
-    with pytest.raises(NotImplementedError, match="cache"):
+    ladder = inp.with_logspaced_redshifts(8.0, 12.0)
+    with pytest.raises(TypeError, match="OutputCache"):
         t21.run_coeval(inp, 8.0, cache=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="cache"):
-        t21.run_coeval(inp.with_logspaced_redshifts(8.0, 12.0), 8.0, cache=object(), device="cpu")
+    with pytest.raises(TypeError, match="OutputCache"):
+        t21.run_coeval(ladder, 8.0, cache=object(), device="cpu")
+    for run in (inp, ladder):
+        cache = t21.OutputCache(tmp_path / str(len(run.node_redshifts)))
+        t21.run_coeval(run, 8.0, cache=cache, device="cpu")
+        assert cache.exists(t21.BrightnessTemp, run, 8.0)
     with pytest.raises(NotImplementedError, match="mesh.*item 17"):
         tspin.compute_spin_temperature(8.0, inp, None, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="mesh.*item 17"):
         t21.compute_xray_source_field(8.0, inp, [], mesh=object(), device="cpu")
 
 
-def test_lightcone_cache_raises():
-    """generate_lightcone keeps refusing the cache, naming its ROADMAP item,
-    before it computes anything."""
+def test_lightcone_cache_raises(tmp_path, monkeypatch):
+    """generate_lightcone refuses a cache that is not an OutputCache before
+    it computes anything; with an OutputCache its first node is written
+    before it is yielded."""
     inp = t21.InputParameters(random_seed=1).evolve_input_structs(
         HII_DIM=8, DIM=16, BOX_LEN=16.0, SOURCE_MODEL="E-INTEGRAL").with_logspaced_redshifts(8.0, 10.0)
+    from py21cmfast_torch.models import ics
+
+    computed, original = [], ics.compute_initial_conditions
+    monkeypatch.setattr(ics, "compute_initial_conditions",
+                        lambda *a, **kw: computed.append(1) or original(*a, **kw))
     gen = t21.generate_lightcone(inp, cache=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="cache.*ROADMAP Queue 1 item 16"):
+    with pytest.raises(TypeError, match="OutputCache"):
         next(gen)
+    assert not computed
+    cache = t21.OutputCache(tmp_path)
+    gen = t21.generate_lightcone(inp, cache=cache, device="cpu")
+    z, _, _ = next(gen)
+    gen.close()
+    assert computed and z == inp.node_redshifts[0]
+    assert t21.RunCache(cache, inp).last_complete_node() == 0
 
 
 @pytest.mark.parametrize(
