@@ -99,7 +99,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      beside phase 9's, peak memory, one deposit launch a node and a
      calibration step;
   14. generate_coeval of the latest-discrete template at phase 12's box
-     down to z=8, once with PARTITION and once with BINARY-SPLIT
+     down to z=10, once with PARTITION and once with BINARY-SPLIT
      progenitors: the catalog chain's wall and parts, the halo counts, the
      seconds per node, the first progenitor step's mass octaves against the
      conditional MF, the binary split's spilled rows and force-saved
@@ -114,6 +114,16 @@ Phases, in order; any failure raises and the script exits non-zero:
      the power spectrum of a z~8 chunk of phase 9's Tb cone on the card
      against the CPU, the Thomson optical depth of phase 9's global xH, and
      convert_halo_properties of 1e7 masses on the card against the CPU.
+  17. (last) the multi-GPU layer, py21cmfast_torch.parallel: 17a
+     run_sharded_coeval of the simple box at z=8 over NCCL with one rank in
+     this process; 17b two ranks sharing the one card (gloo, collectives
+     through host memory) on the headline's box at z=8; 17c the headline's
+     physics as run_sharded_lightcone at 128^3 over 9 nodes; 17d the
+     latest-discrete template at 64^3 to z=10 (the slab sampler's
+     statistics, the sharded painting); each against the single-device run
+     of the same seed, with its wall by part, the time inside collectives
+     and each rank's peak memory; 17e 17b over NCCL with one card a rank,
+     only where there are two cards.
 The line before the last is a JSON object of kernel numbers; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero and
 prints no result.
@@ -2532,8 +2542,9 @@ def cli_phase(kernels, base):
 
 # phase 14: the PARTITION and BINARY-SPLIT progenitor samplers at phase 12's
 # box, the latest-discrete template (HMF 'ST') down the headline's ladder cut
-# to z=8 (the catalogs of every node wait on the host)
-SAMPLERS_Z_END = 8.0
+# to z=10 (the catalogs of every node wait on the host): to z=8 until phase
+# 17 joined the script, which the cut makes room for
+SAMPLERS_Z_END = 10.0
 # the octave tolerances of tests/test_sampler_methods.py:143
 SAMPLER_OCTAVE_TOL = {"PARTITION": 0.75, "BINARY-SPLIT": 0.85}
 
@@ -2569,12 +2580,13 @@ def _progenitor_octaves(inputs, step, edges):
 
 def samplers_headline_phase(kernels):
     """Phase 14: generate_coeval of the latest-discrete template at phase
-    12's box down the headline's ladder to z=8, once with PARTITION and once
+    12's box down the headline's ladder to SAMPLERS_Z_END, once with PARTITION and once
     with BINARY-SPLIT progenitors, from the default CUDA generators, launch
     counts zeroed just before and read just after (one deposit launch a
     node).  Each: the catalog chain's wall and its parts (`_timed_chain`),
-    the halo count at z=8, the seconds a node, and a gate on the first
-    progenitor step (z=8 to the next node): its count in each of 4 mass
+    the halo count at SAMPLERS_Z_END, the seconds a node, and a gate on the
+    first progenitor step (from SAMPLERS_Z_END to the next node): its count
+    in each of 4 mass
     octaves from SAMPLER_MIN_MASS within SAMPLER_OCTAVE_TOL of the
     conditional MF's expectation (`_progenitor_octaves`); for the binary
     split the rows that spilled past its 256 progenitors and the branches
@@ -2731,6 +2743,468 @@ def global_phase(cpu_run):
         raise AssertionError("the 0-D history on the card disagrees with the CPU run")
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the sharded paths of py21cmfast_torch.parallel on the card.  The
+# card host has one GPU, so 17a runs NCCL with one rank in this process and
+# 17b-17d run two ranks on the one card with gloo, whose collectives go
+# through host memory: their times are not multi-GPU scaling numbers.
+
+SHARDED_TIMEOUT = 420.0  # seconds for the ranks of one sharded run
+# the headline's box (bench.py:73-91) at z=8 with a saturated Ts: 17b
+SHARDED_HEADLINE = dict(HII_DIM=256, DIM=768, BOX_LEN=384.0, SOURCE_MODEL="E-INTEGRAL",
+                        PERTURB_ALGORITHM="2LPT", R_BUBBLE_MAX=50.0, USE_EXP_FILTER=False)
+# the headline's physics (USE_TS_FLUCT, INHOMOGENEOUS) at 128^3 / 384^3 in
+# 192 Mpc (its 1.5 Mpc cell), 9 nodes from Z_HEAT_MAX=35 to z=8: 17c
+SHARDED_LC = dict(HII_DIM=128, DIM=384, BOX_LEN=192.0, Z_HEAT_MAX=35.0, ZPRIME_STEP_FACTOR=1.19,
+                  SOURCE_MODEL="E-INTEGRAL", USE_TS_FLUCT=True, RECOMB_MODEL="INHOMOGENEOUS",
+                  R_BUBBLE_MAX=50.0, USE_EXP_FILTER=False, CELL_RECOMB=False)
+SHARDED_LC_Z_END = 8.0
+# 17c's Ts and Tb bound, a share of the field's maximum: float32 chains of 9
+# Ts nodes through two FFT decompositions (the slab FFT and cuFFT's 3D one),
+# as phase 4c bounds the card's chains against the CPU's (1e-3); the
+# single snapshots of 17a and 17b keep 1e-4
+SHARDED_CHAIN_TOL = 1e-3
+# the latest-discrete template at 64^3 / 192^3 in 96 Mpc (its 1.5 Mpc cell)
+# to z=10, its ladder cut to ZPRIME_STEP_FACTOR=1.1: 17d
+SHARDED_DISCRETE = dict(HII_DIM=64, DIM=192, BOX_LEN=96.0, Z_HEAT_MAX=35.0, ZPRIME_STEP_FACTOR=1.1)
+SHARDED_DISCRETE_Z = 10.0
+
+
+def _coeval_gates(tag, z, got, ref, tol=1e-4):
+    """The gates of tests/test_parallel.py:97-100 on one node (density RMS,
+    <xH>, rounded xH) plus Ts and Tb within `tol` of their maximum (Tb where
+    xH agrees): returns the numbers and whether every gate holds.  `got`
+    and `ref` map field names to float64 numpy arrays."""
+    d_s, d_1 = got["density"], ref["density"]
+    x_s, x_1 = got["xH"], ref["xH"]
+    rms = float(np.sqrt(np.mean((d_s - d_1) ** 2)))
+    same = np.abs(x_s - x_1) <= 1e-5
+    out = dict(z=z, density_rms_over_sigma=rms / float(d_1.std()),
+               xH=(float(x_s.mean()), float(x_1.mean())),
+               rounded_xH_flips=float(np.mean(np.round(x_s, 3) != np.round(x_1, 3))),
+               Tb_max_err_over_max=float(np.abs(got["Tb"] - ref["Tb"])[same].max()
+                                         / np.abs(ref["Tb"]).max()))
+    ok = (rms < 1e-4 * d_1.std() + 1e-6 and abs(out["xH"][0] - out["xH"][1]) < 1e-3
+          and out["rounded_xH_flips"] < 5e-3 and out["Tb_max_err_over_max"] <= tol)
+    if "Ts" in ref:
+        out["Ts_max_err_over_max"] = float(np.abs(got["Ts"] - ref["Ts"]).max()
+                                           / np.abs(ref["Ts"]).max())
+        ok = ok and out["Ts_max_err_over_max"] <= tol
+    print(f"[{tag}] z={z:.3f}: density RMS {out['density_rms_over_sigma']:.3e} sigma (limit "
+          f"1e-4), <xH> {out['xH'][0]:.6f} against {out['xH'][1]:.6f}, rounded xH differs in "
+          f"{out['rounded_xH_flips']:.2e} of the cells (limit 5e-3), Tb max-abs "
+          f"{out['Tb_max_err_over_max']:.2e} of max|Tb| where xH agrees"
+          + (f", Ts max-abs {out['Ts_max_err_over_max']:.2e} of its max" if "Ts" in ref else "")
+          + f" (limit {tol:.0e})")
+    return out, ok
+
+
+def _host(t):
+    return None if t is None else t.detach().double().cpu().numpy()
+
+
+def _node_fields(cv):
+    ts = getattr(cv, "spin_temp", None)
+    fields = dict(density=cv.perturbed_field.density, xH=cv.ionized_box.neutral_fraction,
+                  Tb=cv.brightness_temperature.brightness_temp)
+    if ts is not None:
+        fields["Ts"] = ts.spin_temperature
+    return fields
+
+
+@contextlib.contextmanager
+def _timed_parts(walls):
+    """Synchronised walls of the sharded coeval's parts (ICs, perturb, Ts,
+    ionize, Tb) added into `walls`, and of the slab CIC's scatters
+    ("slab CIC": the perturb deposit's, and with halos the painting's)."""
+    import torch
+
+    from py21cmfast_torch.models import brightness, ionization, spintemp
+    from py21cmfast_torch.parallel import driver, perturb
+
+    def timed(key, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            walls[key] = walls.get(key, 0.0) + time.perf_counter() - t0
+            return out
+        return run
+
+    saved = [(driver, "_sharded_ics"), (driver, "build_sharded_perturb"),
+             (ionization, "compute_ionization_field"), (spintemp, "compute_spin_temperature"),
+             (brightness, "brightness_temperature"), (perturb, "_cic_scatter_buffer")]
+    originals = [getattr(m, n) for m, n in saved]
+    build = driver.build_sharded_perturb
+    driver._sharded_ics = timed("ICs", driver._sharded_ics)
+    driver.build_sharded_perturb = lambda *a, **kw: timed("perturb", build(*a, **kw))
+    ionization.compute_ionization_field = timed("ionize", ionization.compute_ionization_field)
+    spintemp.compute_spin_temperature = timed("Ts", spintemp.compute_spin_temperature)
+    brightness.brightness_temperature = timed("Tb", brightness.brightness_temperature)
+    perturb._cic_scatter_buffer = timed("slab CIC", perturb._cic_scatter_buffer)
+    try:
+        yield walls
+    finally:
+        for (m, n), f in zip(saved, originals):
+            setattr(m, n, f)
+
+
+def _rank_report(mesh, walls, wall, launches):
+    import torch
+
+    return dict(rank=mesh.rank, wall=wall, parts=dict(walls), launches=launches,
+                collective_s=mesh.stats["seconds"], collective_calls=mesh.stats["calls"],
+                collective_gib=mesh.stats["bytes"] / 2**30,
+                host_copy_gib=mesh.stats["host_bytes"] / 2**30,
+                peak_gib=torch.cuda.max_memory_allocated(mesh.device) / 2**30)
+
+
+def _sharded_headline_job(mesh):
+    """17b / 17e on one rank: run_sharded_coeval of the headline's box at
+    z=8, timed by part; rank 0 then runs the single-device run_coeval of the
+    same seed (the 2LPT source of the whole box, as the sharded ICs take
+    it: the single-device ICs truncate it above 640^3 cells) and compares."""
+    import torch
+
+    import py21cmfast_torch as p21
+    from py21cmfast_torch.models import ics as ics_module
+    from py21cmfast_torch.ops import deposit
+    from py21cmfast_torch.parallel.driver import run_sharded_coeval
+    from py21cmfast_torch.parallel.mesh import gather_slabs
+
+    inputs = p21.InputParameters(random_seed=HEADLINE_SEED).evolve_input_structs(
+        **SHARDED_HEADLINE)
+    mesh.timed = True
+    deposit.cic_deposit_swept.launches = 0
+    torch.cuda.reset_peak_memory_stats(mesh.device)
+    walls = {}
+    with _timed_parts(walls):
+        (out,), wall = _sync_time(lambda: run_sharded_coeval(inputs, [8.0], mesh=mesh))
+    report = _rank_report(mesh, walls, wall, deposit.cic_deposit_swept.launches)
+    got = {k: _host(gather_slabs(mesh, v)) for k, v in _node_fields(out).items()}
+    del out
+    if mesh.rank == 0:
+        torch.cuda.empty_cache()
+        ics_module._2LPT_MAX_INHBM_CELLS = float("inf")
+        (cv,), single_s = _sync_time(lambda: p21.run_coeval(inputs, [8.0], device=mesh.device))
+        report["single_wall"] = single_s
+        report["gates"] = _coeval_gates("sharded-headline", 8.0, got,
+                                        {k: _host(v) for k, v in _node_fields(cv).items()})
+    mesh.barrier()
+    return report
+
+
+def _sharded_lightcone_job(mesh):
+    """17c on one rank: run_sharded_lightcone of SHARDED_LC, every node's
+    fields gathered; rank 0 then runs generate_lightcone of the same seed on
+    one device and compares per node and per cone."""
+    import torch
+
+    import py21cmfast_torch as p21
+    from py21cmfast_torch.ops import deposit
+    from py21cmfast_torch.parallel import driver
+    from py21cmfast_torch.parallel.mesh import gather_slabs
+
+    inputs = p21.InputParameters(random_seed=HEADLINE_SEED).evolve_input_structs(
+        **SHARDED_LC).with_logspaced_redshifts(SHARDED_LC_Z_END)
+    mesh.timed = True
+    deposit.cic_deposit_swept.launches = 0
+    torch.cuda.reset_peak_memory_stats(mesh.device)
+    nodes = []
+    scroll = driver.run_sharded_coeval
+
+    def kept(*a, **kw):
+        out = scroll(*a, **kw)
+        for o in out:
+            nodes.append({k: _host(gather_slabs(mesh, v)) for k, v in _node_fields(o).items()})
+        return out
+
+    walls = {}
+    driver.run_sharded_coeval = kept
+    try:
+        with _timed_parts(walls):
+            lc, wall = _sync_time(lambda: driver.run_sharded_lightcone(inputs, mesh=mesh))
+    finally:
+        driver.run_sharded_coeval = scroll
+    report = _rank_report(mesh, walls, wall, deposit.cic_deposit_swept.launches)
+    if mesh.rank == 0:
+        ref_nodes = []
+        ref = None
+        t0 = time.perf_counter()
+        for z, cv, lc_1 in p21.generate_lightcone(inputs, device=mesh.device):
+            if cv is not None:
+                ref_nodes.append({k: _host(v) for k, v in _node_fields(cv).items()})
+            ref = lc_1
+        torch.cuda.synchronize()
+        report["single_wall"] = time.perf_counter() - t0
+        gates, ok = [], len(nodes) == len(ref_nodes) == len(inputs.node_redshifts)
+        for z, g, r in zip(inputs.node_redshifts, nodes, ref_nodes):
+            numbers, node_ok = _coeval_gates("sharded-lightcone", float(z), g, r,
+                                             tol=SHARDED_CHAIN_TOL)
+            gates.append(numbers)
+            ok = ok and node_ok
+        cones = {}
+        for q, cone in ref.lightcones.items():
+            r, g = _host(cone), _host(lc.lightcones[q])
+            cones[q] = float(np.mean(np.abs(g - r) > 1e-3 * np.abs(r).max()))
+            ok = ok and g.shape == r.shape and cones[q] <= 1e-3
+        report["gates"] = (dict(nodes=gates, cones_off_share=cones), ok)
+        print(f"[sharded-lightcone] share of each cone's cells off by > 1e-3 of its max: {cones} "
+              "(limit 1e-3)")
+    mesh.barrier()
+    return report
+
+
+def _sharded_discrete_job(mesh):
+    """17d on one rank: run_sharded_coeval of the latest-discrete template
+    at SHARDED_DISCRETE to z=10, with the grid sample of each slab recorded
+    (its count and mass octaves against the expected, summed over the
+    ranks), and the last node's sharded HaloBox against the single-device
+    compute_halo_grid of the same perturbed catalog."""
+    import torch
+
+    import py21cmfast_torch as p21
+    from py21cmfast_torch.models import halobox, halos
+    from py21cmfast_torch.ops import deposit
+    from py21cmfast_torch.parallel import halopaint
+    from py21cmfast_torch.parallel.driver import run_sharded_coeval
+    from py21cmfast_torch.parallel.mesh import gather_slabs
+
+    inputs = p21.InputParameters.from_template(
+        DISCRETE_TEMPLATE, random_seed=HEADLINE_SEED
+    ).evolve_input_structs(**SHARDED_DISCRETE).with_logspaced_redshifts(SHARDED_DISCRETE_Z)
+    so = inputs.simulation_options
+    mesh.timed = True
+    deposit.cic_deposit_swept.launches = 0
+    torch.cuda.reset_peak_memory_stats(mesh.device)
+    sample, painted = {}, {}
+    tables, sampler, paint = halos.grid_sampler_tables, halos.sample_halo_grid, \
+        halopaint.sharded_halo_grids
+
+    def tables_kept(z, *a, **kw):
+        sample["h"], sample["z"] = tables(z, *a, **kw), z
+        return sample["h"]
+
+    def sampler_kept(*a, **kw):
+        masses, pos = sampler(*a, **kw)
+        sample["masses"] = masses
+        return masses, pos
+
+    def paint_kept(z, inputs_, pt_halos, mesh_, **kw):
+        out = paint(z, inputs_, pt_halos, mesh_, **kw)
+        # copies: the driver adds the sub-sampler grids to the namespace
+        painted.update(z=z, pt=pt_halos, grids={k: getattr(out, k).clone() for k in (
+            "n_ion", "halo_sfr", "whalo_sfr", "halo_xray")})
+        return out
+
+    halos.grid_sampler_tables, halos.sample_halo_grid = tables_kept, sampler_kept
+    halopaint.sharded_halo_grids = paint_kept
+    walls = {}
+    try:
+        with _timed_parts(walls):
+            (out,), wall = _sync_time(lambda: run_sharded_coeval(inputs, [SHARDED_DISCRETE_Z],
+                                                                 mesh=mesh))
+    finally:
+        halos.grid_sampler_tables, halos.sample_halo_grid = tables, sampler
+        halopaint.sharded_halo_grids = paint
+    report = _rank_report(mesh, walls, wall, deposit.cic_deposit_swept.launches)
+    h, masses = sample["h"], sample["masses"]
+    n_coll = int(h["collapsed"].sum())
+    edges = so.SAMPLER_MIN_MASS * 2.0 ** np.arange(5)
+    got = torch.histc(torch.log2(masses[: masses.numel() - n_coll].double() / so.SAMPLER_MIN_MASS),
+                      bins=4, min=0, max=4).cpu().numpy()
+    expect = _octave_expectation(inputs, sample["z"], h, edges)
+    sums = mesh.all_reduce_floats([masses.numel(), h["n_expected"]] + got.tolist()
+                                  + expect.tolist())
+    n, n_exp = sums[0], sums[1]
+    got_all, expect_all = np.array(sums[2:6]), np.array(sums[6:10])
+    grids = {k: _host(gather_slabs(mesh, v)) for k, v in painted["grids"].items()}
+    fields = {k: _host(gather_slabs(mesh, v)) for k, v in _node_fields(out).items()}
+    if mesh.rank == 0:
+        sig = (got_all - expect_all) / np.sqrt(expect_all)
+        single, report["single_wall"] = _sync_time(lambda: halobox.compute_halo_grid(
+            painted["z"], inputs, painted["pt"], device=mesh.device))
+        errs = {k: float(np.abs(v - _host(getattr(single, k))).max()
+                         / np.abs(_host(getattr(single, k))).max()) for k, v in grids.items()}
+        ok = (abs(n / n_exp - 1) <= 0.01 and bool(np.all(np.abs(sig) <= 5.0))
+              and all(e <= 1e-5 for e in errs.values())
+              and all(np.isfinite(v).all() for v in fields.values()))
+        print(f"[sharded-discrete] z={sample['z']} slab grid samples of {mesh.size} ranks: "
+              f"{int(n)} halos against sum(n_exp) + collapsed cells {n_exp:.1f} "
+              f"({n / n_exp - 1:+.3e}, limit 1%); by mass octave from {so.SAMPLER_MIN_MASS:.0e}: "
+              f"{got_all.astype(int).tolist()} against the CMF's {np.round(expect_all, 1).tolist()} "
+              f"({np.round(sig, 3).tolist()} sigma, limit 5); sharded_halo_grids of the "
+              f"z={painted['z']:.3f} catalog ({painted['pt'].n_halos} halos) against "
+              f"compute_halo_grid, max-abs over max: {errs} (limit 1e-5); <xH> "
+              f"{fields['xH'].mean():.6f}")
+        report["gates"] = (dict(count=(n, n_exp), octave_sigma=sig.tolist(), grids=errs), ok)
+    mesh.barrier()
+    return report
+
+
+def _sharded_rank(rank, world, store_dir, backend, job, out_path):
+    """One rank of a sharded phase: join the group, run `job`, write the
+    report (or the traceback) to `out_path` + rank."""
+    import pickle
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+
+    result = None
+    try:
+        device = f"cuda:{rank}" if backend == "nccl" else "cuda:0"
+        torch.cuda.set_device(device)
+        dist.init_process_group(backend, store=dist.FileStore(os.path.join(store_dir, "store"),
+                                                              world),
+                                rank=rank, world_size=world)
+        from py21cmfast_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(world, backend=backend, device=device)
+        result = ("ok", globals()[job](mesh))
+    except Exception:
+        result = ("error", traceback.format_exc())
+    finally:
+        with open(f"{out_path}{rank}", "wb") as fh:
+            pickle.dump(result, fh)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _run_sharded(tag, job, world=2, backend="gloo"):
+    """Run `job` on `world` spawned ranks (two on the one card by default,
+    gloo); every rank is joined under SHARDED_TIMEOUT and then stopped.
+    Returns the ranks' reports; raises when a rank failed or hung."""
+    import multiprocessing
+    import pickle
+    import shutil
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ranks_", dir=".")
+    out_path = os.path.join(tmp, "rank")
+    ctx = multiprocessing.get_context("spawn")
+    # four BLAS threads a rank: the host's cores are shared by the ranks
+    saved = {k: os.environ.get(k) for k in ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS")}
+    os.environ.update(OMP_NUM_THREADS="4", OPENBLAS_NUM_THREADS="4")
+    try:
+        procs = [ctx.Process(target=_sharded_rank, args=(r, world, tmp, backend, job, out_path))
+                 for r in range(world)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    try:
+        for p in procs:
+            p.join(max(1.0, SHARDED_TIMEOUT - (time.perf_counter() - t0)))
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        reports = []
+        for r in range(world):
+            path = f"{out_path}{r}"
+            if not os.path.exists(path):
+                reports.append(None)
+                continue
+            with open(path, "rb") as fh:
+                reports.append(pickle.load(fh))
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+            p.join(10)
+        shutil.rmtree(tmp, ignore_errors=True)
+    if hung:
+        raise AssertionError(f"[{tag}] ranks {hung} did not finish within {SHARDED_TIMEOUT} s")
+    for r, rep in enumerate(reports):
+        if rep is None or rep[0] != "ok":
+            raise AssertionError(f"[{tag}] rank {r} failed:\n{rep[1] if rep else 'no report'}")
+    wall = time.perf_counter() - t0
+    reports = [rep[1] for rep in reports]
+    for rep in reports:
+        print(f"[{tag}] rank {rep['rank']}: sharded run {rep['wall']:.2f} s, by part "
+              f"{ {k: round(v, 3) for k, v in rep['parts'].items()} } s; in collectives "
+              f"{rep['collective_s']:.2f} s ({rep['collective_calls']} calls, "
+              f"{rep['collective_gib']:.3f} GiB sent, {rep['host_copy_gib']:.3f} GiB copied "
+              f"between card and host); peak memory {rep['peak_gib']:.3f} GiB; deposit kernel "
+              f"launches {rep['launches']}")
+    print(f"[{tag}] {world} ranks ({backend}) from spawn to exit {wall:.1f} s; single-device "
+          f"reference on rank 0 {reports[0].get('single_wall', float('nan')):.2f} s")
+    numbers, ok = reports[0]["gates"]
+    if not ok:
+        raise AssertionError(f"[{tag}] the sharded run disagrees with the single-device run: "
+                             f"{numbers}")
+    return reports
+
+
+def sharded_phase(kernels):
+    """Phase 17: the multi-GPU layer on the card.  17a: run_sharded_coeval
+    of the main path's simple+size-medium box at z=8 over NCCL with one rank
+    in this process, against run_coeval of the same seed; 17b: the
+    headline's box at z=8 on two ranks sharing the card (gloo, collectives
+    through host memory), against the single-device run; 17c: the headline's
+    physics as run_sharded_lightcone at 128^3 over 9 nodes, against
+    generate_lightcone per node and per cone; 17d: the latest-discrete
+    template at 64^3 to z=10 (the slab sampler's statistics, the sharded
+    painting against the single-device HaloBox); 17e: 17b over NCCL with one
+    card a rank where there are two cards.  The sharded paths deposit with
+    index_add_, as the JAX package's sharded perturb scatters with XLA:
+    every rank reports its deposit-kernel launches (0)."""
+    import torch
+
+    import py21cmfast_torch as p21
+    from py21cmfast_torch.ops import deposit
+    from py21cmfast_torch.parallel import multihost
+    from py21cmfast_torch.parallel.driver import run_sharded_coeval
+    from py21cmfast_torch.parallel.mesh import make_mesh
+
+    t_phase = time.perf_counter()
+    # 17a: NCCL, one rank, in this process
+    inputs = p21.InputParameters.from_template(MAIN_TEMPLATE, random_seed=SEED)
+    multihost.initialize(backend="nccl")
+    try:
+        mesh = make_mesh(1)
+        deposit.cic_deposit_swept.launches = 0
+        (out,), wall = _sync_time(lambda: run_sharded_coeval(inputs, [8.0], mesh=mesh))
+        launches = deposit.cic_deposit_swept.launches
+        print(f"[sharded-simple] run_sharded_coeval({MAIN_TEMPLATE}, [8.0]) over {mesh}: "
+              f"{wall:.3f} s (first call), {mesh.stats['calls']} collectives, deposit kernel "
+              f"launches {launches}")
+        got = {k: _host(v) for k, v in _node_fields(out).items()}
+        del out
+        (cv,) = p21.run_coeval(inputs, [8.0])
+        numbers, ok = _coeval_gates("sharded-simple", 8.0, got,
+                                    {k: _host(v) for k, v in _node_fields(cv).items()})
+        del cv
+        if not ok:
+            raise AssertionError(f"[sharded-simple] NCCL sharded run disagrees: {numbers}")
+    finally:
+        multihost.shutdown()
+    torch.cuda.empty_cache()
+    paths = {"sharded_simple": launches}
+    for tag, job in (("sharded-headline", "_sharded_headline_job"),
+                     ("sharded-lightcone", "_sharded_lightcone_job"),
+                     ("sharded-discrete", "_sharded_discrete_job")):
+        reports = _run_sharded(tag, job)
+        paths[tag.replace("-", "_")] = sum(r["launches"] for r in reports)
+    if torch.cuda.device_count() >= 2:
+        reports = _run_sharded("sharded-headline-nccl", "_sharded_headline_job", backend="nccl")
+        paths["sharded_headline_nccl"] = sum(r["launches"] for r in reports)
+    else:
+        print(f"[sharded-headline-nccl] skipped: {torch.cuda.device_count()} CUDA device on this "
+              "host, and NCCL takes one card a rank (17a ran NCCL with one rank)")
+    for k in kernels:
+        k["launches_by_path"].update(paths)
+        k["launches"] = sum(k["launches_by_path"].values())
+    if any(paths.values()):
+        raise AssertionError(f"a sharded path launched the deposit kernel: {paths}")
+    print(f"[sharded] phase 17 in {time.perf_counter() - t_phase:.1f} s; deposit kernel launches "
+          f"by sharded path {paths}")
+
+
 def main():
     import torch
 
@@ -2772,6 +3246,8 @@ def main():
         torch.cuda.empty_cache()
         samplers_headline_phase(kernels)
         global_phase(cpu_global)
+        torch.cuda.empty_cache()
+        sharded_phase(kernels)
     finally:
         if cpu_global[0].is_alive():
             cpu_global[0].terminate()

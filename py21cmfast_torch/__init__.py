@@ -19,8 +19,9 @@ and the output cache from which a run resumes (`io`; they need the optional
 h5py), the command line (`21cmfast-torch`, `python -m py21cmfast_torch`),
 the low-level `cfuncs`, power spectra (`ops.ps`), the UV luminosity
 function, the CLASS and Boltzmann helpers, `plotting` (matplotlib, optional)
-and the `wrapper` layout of the reference.  What is not ported yet (a device
-mesh) raises NotImplementedError naming the ROADMAP item that brings it.
+and the `wrapper` layout of the reference.  Multi-GPU runs (one process a
+rank over `torch.distributed`, each on its own x-slab) are in
+`py21cmfast_torch.parallel`, which this package does not import.
 The swept CIC deposit is a hand-written CUDA kernel
 (`csrc/cic_deposit.cu`), built with nvcc at its first use.
 """

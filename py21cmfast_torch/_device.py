@@ -21,11 +21,3 @@ def resolve_device(device) -> torch.device:
         raise ValueError(f"unsupported device {device!r}: use 'cuda' or 'cpu'")
     return dev
 
-
-def not_in_slice(what: str, roadmap_item: int):
-    """Raise for an option the port does not run yet, naming the ROADMAP
-    Queue 1 item that will bring it."""
-    raise NotImplementedError(
-        f"{what} is not ported to py21cmfast_torch yet "
-        f"(ROADMAP Queue 1 item {roadmap_item})"
-    )

@@ -27,6 +27,8 @@ py21cmfast_tpu/models/halobox.py:
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -34,6 +36,7 @@ from .._device import resolve_device
 from ..cosmology.constants import physconst
 from ..inputs import InputParameters
 from ..ops import cic
+from ..ops.gridops import for_mesh
 from ..ops.grids import true_div
 from ..outputs import HaloBox, PerturbedHaloCatalog
 from . import hmf
@@ -51,18 +54,20 @@ _f32 = np.float32
 
 
 def _mcrit_grids(redshift, inputs, sc, previous_spin_temp, previous_ionized_box,
-                 lowres_vcb, device="cuda"):
+                 lowres_vcb, device="cuda", shape=None):
     """Per-cell log10 feedback turnover grids (get_log10_turnovers,
     HaloBox.c:465-517), through ionization's `_mcrit_kernel`: the previous
     TsBox's J_21_LW and IonizedBox's Gamma12 and z_reion once the heating has
-    started (redshift < Z_HEAT_MAX), and the |v_cb| box under FLUCTS."""
+    started (redshift < Z_HEAT_MAX), and the |v_cb| box under FLUCTS.
+    `shape` is that of grids filled in for missing boxes (this rank's slab
+    on a mesh)."""
     started = redshift < inputs.simulation_options.Z_HEAT_MAX
     vcb = lowres_vcb if inputs.matter_options.V_CB_MODEL == "FLUCTS" else None
     return mcrit_boxes(
         redshift, inputs, sc,
         previous_ionized_box if started else None,
         previous_spin_temp if started else None,
-        vcb, resolve_device(device),
+        vcb, resolve_device(device), shape,
     )
 
 
@@ -217,6 +222,7 @@ def compute_fixed_halo_grid(
     mt_a_grid=None,
     mt_m_grid=None,
     ics=None,
+    mesh=None,
     *,
     device="cuda",
 ) -> HaloBox | None:
@@ -234,32 +240,35 @@ def compute_fixed_halo_grid(
     fields the grids are velocity-displaced to Eulerian positions (bare cell
     integrals; the CIC deposit makes the pile-up), otherwise they are scaled
     by (1+delta).  Returns None when the mass range is empty (the minimum
-    source mass above min(m_max, cell mass))."""
+    source mass above min(m_max, cell mass)).  With `mesh` (a
+    parallel.mesh.Mesh) the grids are this rank's x-slabs: the mean fix and
+    the turnover means are taken over the ranks and the displacement
+    deposits across the slab borders."""
     dev = resolve_device(device)
+    gops = for_mesh(mesh)
     so = inputs.simulation_options
     h = fixed_grid_tables(redshift, inputs, m_max)
     if h is None:
         return None
     use_mini = h["use_mini"]
+    lshape = gops.local_shape(so.lowres_shape)
     delta_l = lagrangian_delta.to(dev)
     if use_mini:
         if mt_a_grid is None:
-            mt_a_grid = torch.full(so.lowres_shape, float(_f32(h["l10_mturn_a_nofb"])),
+            mt_a_grid = torch.full(lshape, float(_f32(h["l10_mturn_a_nofb"])),
                                    dtype=torch.float32, device=dev)
         if mt_m_grid is None:
-            mt_m_grid = torch.full(so.lowres_shape, float(_f32(h["l10_mturn_m_nofb"])),
+            mt_m_grid = torch.full(lshape, float(_f32(h["l10_mturn_m_nofb"])),
                                    dtype=torch.float32, device=dev)
         mt_a_grid, mt_m_grid = mt_a_grid.to(dev), mt_m_grid.to(dev)
 
-    will_displace = (
-        ics is not None and ics.vx is not None and tuple(ics.vx.shape) == so.lowres_shape
-    )
+    will_displace = ics is not None and ics.vx is not None and tuple(ics.vx.shape) == lshape
     nion_rel, sfrd_rel, nion_rel_mini, sfrd_rel_mini = _gather_cells(
         h, delta_l, mt_a_grid, mt_m_grid, one_plus_delta=not will_displace)
 
     if h["mean_fix"] is not None:
         nion_u, sfrd_u = h["mean_fix"]
-        nion_mean, sfrd_mean = torch.stack([nion_rel.mean(), sfrd_rel.mean()]).tolist()
+        nion_mean, sfrd_mean = gops.means([nion_rel, sfrd_rel], so.lowres_shape)
         if nion_mean > 0:
             nion_rel = nion_rel * float(_f32(nion_u / nion_mean))
         if sfrd_mean > 0:
@@ -288,7 +297,12 @@ def compute_fixed_halo_grid(
         props = [n_ion, halo_sfr, whalo_sfr, halo_xray, halo_stars]
         if use_mini:
             props += [halo_sfr_mini, halo_stars_mini]
-        moved = _displace_grids(
+        displace = _displace_grids
+        if gops.sharded:
+            from ..parallel.perturb import displace_grids_slab
+
+            displace = functools.partial(displace_grids_slab, mesh)
+        moved = displace(
             props,
             tuple(v.to(dev) for v in (ics.vx, ics.vy, ics.vz)),
             tuple(v.to(dev) for v in (ics.vx_2LPT, ics.vy_2LPT, ics.vz_2LPT)) if use_2lpt else None,
@@ -303,7 +317,7 @@ def compute_fixed_halo_grid(
     # HaloBox.c:511-517), one float32 mean each; the no-feedback constants
     # without minihalos
     if use_mini:
-        l10_a, l10_m = torch.stack([mt_a_grid.mean(), mt_m_grid.mean()]).tolist()
+        l10_a, l10_m = gops.means([mt_a_grid, mt_m_grid], so.lowres_shape)
     else:
         l10_a, l10_m = h["l10_mturn_a_nofb"], h["l10_mturn_m_nofb"]
     return HaloBox(

@@ -241,13 +241,16 @@ def _dexm_catalog(inputs, halo_grid, in_halo):
 
 
 def grid_sampler_tables(redshift: float, inputs: InputParameters, lagrangian_delta,
-                        exclude_mask=None):
+                        exclude_mask=None, grid_shape=None, origin_cells=(0, 0, 0)):
     """The host part of `sample_halo_grid` (float64): the inverse-CMF table
     over N_COND_INTERP cell densities, each cell's clipped density, expected
     halo count (`n_exp`; 0 in excluded and collapsed cells) and collapsed
     mass, the collapsed cells (density above 0.99 of the barrier: one halo
     of the expected mass each, Stochasticity.c:686-694), `k_max`, and
-    `n_expected` = sum(n_exp) + the collapsed cells."""
+    `n_expected` = sum(n_exp) + the collapsed cells.  `grid_shape` and
+    `origin_cells` name a slab of the lowres grid (parallel/sampler.py):
+    `lagrangian_delta` is then that slab, whose first cell is at
+    `origin_cells`."""
     so = inputs.simulation_options
     cosmo = inputs.cosmology
     sigma_table = _get_sigma_table(inputs)
@@ -279,6 +282,8 @@ def grid_sampler_tables(redshift: float, inputs: InputParameters, lagrangian_del
     return dict(
         inv_tab=inv_tab, d_lo=d_lo, d_hi=d_hi, delta_z=delta_z, n_exp=n_exp, m_tgt=m_tgt,
         collapsed=collapsed, cell_len=cell_len,
+        grid_shape=tuple(so.lowres_shape if grid_shape is None else grid_shape),
+        origin=tuple(int(o) for o in origin_cells),
         k_max=int(np.clip(3 * n_exp.max() + 8, 16, 4096)),
         n_expected=float(n_exp.sum()) + int(collapsed.sum()),
     )
@@ -323,13 +328,17 @@ def _sample_cells_core(delta, inv_table, d_lo, d_hi, lnp_min, m_min, u, n_draw):
     return m, keep
 
 
-def _cell_positions(cell_ids, jitter, lo_shape, cell_len):
+def _cell_positions(cell_ids, jitter, lo_shape, cell_len, origin=(0, 0, 0)):
     """Kept halos' positions (Mpc, float32): cell corner plus the uniform
-    jitter of their slot, times the cell length."""
+    jitter of their slot, times the cell length, plus the slab's origin
+    (`origin` cells, in float32 as the JAX package adds it)."""
     nx, ny, nz = lo_shape
     base = torch.stack([cell_ids // (ny * nz), (cell_ids // nz) % ny, cell_ids % nz],
                        dim=-1).to(torch.float32)
-    return (base + jitter) * float(_f32(cell_len))
+    pos = (base + jitter) * float(_f32(cell_len))
+    if any(origin):
+        pos = pos + torch.as_tensor(np.asarray(origin, _f32) * _f32(cell_len), device=pos.device)
+    return pos
 
 
 def _grid_draws(n_exp, k_max, generator, dev):
@@ -348,24 +357,26 @@ def _grid_chunk(inputs, h, delta, inv_table, start, u, n_draw, jitter):
     m, keep = _sample_cells_core(delta[start:start + u.shape[0]], inv_table, h["d_lo"], h["d_hi"],
                                  so.MIN_LOGPROB, so.SAMPLER_MIN_MASS, u, n_draw)
     rows, slots = keep.nonzero(as_tuple=True)
-    return m[rows, slots], _cell_positions(rows + start, jitter[rows, slots], so.lowres_shape,
-                                           h["cell_len"])
+    return m[rows, slots], _cell_positions(rows + start, jitter[rows, slots], h["grid_shape"],
+                                           h["cell_len"], h["origin"])
 
 
 def _collapsed_halos(inputs, h, dev):
     """One halo of the expected mass in each collapsed cell, at a
     `default_rng(seed + 29)` position in it (float32 masses and Mpc)."""
     ids = np.nonzero(h["collapsed"])[0]
-    nx, ny, nz = inputs.simulation_options.lowres_shape
+    nx, ny, nz = h["grid_shape"]
     rng = np.random.default_rng(inputs.random_seed + 29)
     pos = (np.stack([ids // (ny * nz), (ids // nz) % ny, ids % nz], axis=-1).astype(np.float64)
+           + np.asarray(h["origin"], np.float64)
            + rng.uniform(size=(len(ids), 3))) * h["cell_len"]
     return (torch.as_tensor(h["m_tgt"][ids].astype(_f32), device=dev),
             torch.as_tensor(pos.astype(_f32), device=dev))
 
 
 def sample_halo_grid(redshift: float, inputs: InputParameters, lagrangian_delta,
-                     exclude_mask=None, generator=None, *, device="cuda"):
+                     exclude_mask=None, generator=None, grid_shape=None, origin_cells=(0, 0, 0),
+                     *, device="cuda"):
     """Sample the conditional MF in every lowres cell between SAMPLER_MIN_MASS
     and the cell mass (reference sample_halo_grids, Stochasticity.c:761-941),
     number-limited; collapsed cells give one halo of their expected mass.
@@ -375,12 +386,15 @@ def sample_halo_grid(redshift: float, inputs: InputParameters, lagrangian_delta,
     compacted with `torch.nonzero` in row-major order, the collapsed cells'
     halos last.  The JAX package scatters them instead into a buffer of
     SAMPLER_BUFFER_FACTOR * sum(n_exp) + 1024 slots; the two catalogs are
-    equal whenever that buffer does not overflow.  Returns float32 (masses,
-    positions in Mpc)."""
+    equal whenever that buffer does not overflow.  `grid_shape` and
+    `origin_cells` sample a slab of the grid (parallel/sampler.py):
+    `lagrangian_delta` is then that slab, and the positions are global.
+    Returns float32 (masses, positions in Mpc)."""
     dev = resolve_device(device)
     if generator is None:
         generator = default_generator(inputs, redshift, dev)
-    h = grid_sampler_tables(redshift, inputs, lagrangian_delta, exclude_mask)
+    h = grid_sampler_tables(redshift, inputs, lagrangian_delta, exclude_mask, grid_shape,
+                            origin_cells)
     k_max = h["k_max"]
     inv_table = torch.as_tensor(h["inv_tab"].astype(_f32), device=dev)
     delta = torch.as_tensor(h["delta_z"].astype(_f32), device=dev)

@@ -49,7 +49,8 @@ from .._device import resolve_device
 from ..cosmology.constants import FRACT_FLOAT_ERR, TINY, physconst
 from ..cosmology.recombination import RecombinationHistory
 from ..inputs import InputParameters
-from ..ops import fft, filters, grids
+from ..ops import filters
+from ..ops.gridops import SINGLE, for_mesh
 from ..outputs import HaloBox, IonizedBox, PerturbedField, TsBox
 from . import hmf
 from . import recomb as recomb_module
@@ -252,15 +253,17 @@ def _mcrit_kernel(prev_g12, prev_zre, j21, redshift, mturn_a_nofb, mturn_m_nofb,
     return mt_a, mt_m
 
 
-def mcrit_boxes(redshift, inputs, sc, previous_ionized_box, lw_box, vcb_box, device):
+def mcrit_boxes(redshift, inputs, sc, previous_ionized_box, lw_box, vcb_box, device,
+                shape=None):
     """`_mcrit_kernel` for one snapshot, its scalars rounded to float32 on
     `device` as the JAX package hands them over.  `previous_ionized_box`
     gives Gamma12 and z_reion (no reionization feedback without one),
     `lw_box` is the TsBox whose J_21_LW sets the LW feedback (none without
     one), `vcb_box` the ICs' lowres |v_cb| (the scaling constants' mean speed
-    without one)."""
+    without one).  `shape` is that of the grids filled in for missing boxes
+    (the lowres shape; this rank's slab on a mesh)."""
     ap = inputs.astro_params
-    shape = inputs.simulation_options.lowres_shape
+    shape = inputs.simulation_options.lowres_shape if shape is None else shape
 
     def grid(box, name, fill):
         v = getattr(box, name, None) if box is not None else None
@@ -358,7 +361,7 @@ def _ionize_scan(
     delta, prev_z_reion, steps, *, shape, box_lens, hii_filter, mass_dep, use_cheby,
     track_mfp, mean_fcoll, f_limit, ion_eff, gamma_prefactor, sigma_min, growth, redshift,
     xe_box=None, rec_box=None, filter_recomb=False, mini=None, lagr=None,
-    paint_spheres=False,
+    paint_spheres=False, gops=SINGLE,
 ):
     """Descending-R excursion-set loop.  `steps` holds the per-R scalars and
     tables ordered largest R first.  `xe_box` is the x-ray ionized fraction of
@@ -379,20 +382,25 @@ def _ionize_scan(
     exponential-MFP tophat under USE_EXP_FILTER) and its `mfp`; the collapsed
     fraction is then stars_R / (1 + delta_R), with no mean fix, and Gamma12
     comes from the filtered SFR.  `paint_spheres` (IONISE_ENTIRE_SPHERE)
-    ionizes the whole R-sphere around each newly ionized cell."""
-    kmag = grids.kmag_grid(shape, box_lens, delta.device)
-    d_k = fft.rfft3(delta)
-    xe_k = fft.rfft3(xe_box) if xe_box is not None else None
-    rec_k = fft.rfft3(rec_box) if filter_recomb else None
+    ionizes the whole R-sphere around each newly ionized cell.
+
+    `gops` (ops/gridops.py) takes the FFTs, |k| and the grid means: SINGLE
+    on one device, the slab FFT and the means over the ranks on a mesh,
+    where the grids are this rank's x-slabs and `shape` the global shape."""
+    kmag = gops.kmag(shape, box_lens, delta.device)
+    d_k = gops.rfft3(delta)
+    xe_k = gops.rfft3(xe_box) if xe_box is not None else None
+    rec_k = gops.rfft3(rec_box) if filter_recomb else None
     if lagr is not None:
-        stars_k, wsfr_k = fft.rfft3(lagr["stars"]), fft.rfft3(lagr["wsfr"])
+        stars_k, wsfr_k = gops.rfft3(lagr["stars"]), gops.rfft3(lagr["wsfr"])
     n_r = len(steps)
     nion = nion_mini = None
     if mini is not None:
-        mta_k, mtm_k = fft.rfft3(mini["mturn_a"]), fft.rfft3(mini["mturn_m"])
+        mta_k, mtm_k = gops.rfft3(mini["mturn_a"]), gops.rfft3(mini["mturn_m"])
         track = mini.get("prev_delta") is not None
-        pd_k = fft.rfft3(mini["prev_delta"]) if track else None
-        nion = torch.empty((n_r,) + tuple(shape), dtype=torch.float32, device=delta.device)
+        pd_k = gops.rfft3(mini["prev_delta"]) if track else None
+        nion = torch.empty((n_r,) + gops.local_shape(shape), dtype=torch.float32,
+                           device=delta.device)
         nion_mini = torch.empty_like(nion)
 
     # the neutral-fraction buffer starts at 1 (reference outputs.py:1525)
@@ -407,7 +415,7 @@ def _ionize_scan(
         def filtered(k_box, unfiltered):
             if is_last:
                 return unfiltered
-            return fft.irfft3(filters.filter_kbox(k_box, kmag, hii_filter, r), shape)
+            return gops.irfft3(filters.filter_kbox(k_box, kmag, hii_filter, r), shape)
 
         delta_r = filtered(d_k, delta)
         xe_r = filtered(xe_k, xe_box) if xe_box is not None else None
@@ -417,8 +425,8 @@ def _ionize_scan(
             else:
                 # one source window serves both grids
                 win = filters.filter_weights(kmag, lagr["source_filter"], r, lagr["mfp"])
-                stars_r = fft.irfft3(stars_k * win, shape)
-                sfr_r = fft.irfft3(wsfr_k * win, shape)
+                stars_r = gops.irfft3(stars_k * win, shape)
+                sfr_r = gops.irfft3(wsfr_k * win, shape)
         if mini is not None:
             mta_r = filtered(mta_k, mini["mturn_a"])
             mtm_r = filtered(mtm_k, mini["mturn_m"])
@@ -443,12 +451,12 @@ def _ionize_scan(
             )
         if lagr is None:
             # mean fix: normalize the grid mean to the global unconditional value
-            grid_mean = torch.clamp_min(fcoll.mean(), f_limit)
+            grid_mean = torch.clamp_min(gops.mean(fcoll, shape), f_limit)
             fcoll = fcoll * (mean_fcoll / grid_mean)
             if mass_dep:
                 fcoll = torch.clamp_min(fcoll, f_limit)
         if mini is not None:
-            grid_mean_mini = torch.clamp_min(fcoll_mini.mean(), mini["f_limit_mini"])
+            grid_mean_mini = torch.clamp_min(gops.mean(fcoll_mini, shape), mini["f_limit_mini"])
             fcoll_mini = torch.clamp_min(
                 fcoll_mini * (mini["mean_fcoll_mini"] / grid_mean_mini), mini["f_limit_mini"])
 
@@ -477,7 +485,7 @@ def _ionize_scan(
         if track_mfp:
             mfp = torch.where(newly, r, mfp)
         if paint_spheres:
-            xh = _paint_spheres(xh, newly, kmag, r, shape, box_lens)
+            xh = _paint_spheres(xh, newly, kmag, r, shape, box_lens, gops)
         else:
             xh = torch.where(ionized, 0.0, xh)
 
@@ -494,15 +502,15 @@ def _ionize_scan(
     return xh, gamma, mfp, z_reion, nion, nion_mini
 
 
-def _paint_spheres(xh, newly, kmag, r, shape, box_lens):
+def _paint_spheres(xh, newly, kmag, r, shape, box_lens, gops=SINGLE):
     """IONISE_ENTIRE_SPHERE (reference update_in_sphere,
     bubble_helper_progs.c:341): zero the whole R-sphere around each newly
     ionized cell.  The flag field is convolved with the normalized spherical
     tophat; a cell within R of a flagged centre gets at least 1/N_sphere
     (N_sphere the sphere's volume in cells), and the FFT sidelobes are ~1e-2
     of that, so the threshold is half of it."""
-    painted = fft.irfft3(
-        filters.filter_kbox(fft.rfft3(newly.to(torch.float32)), kmag, filters.TOPHAT, r), shape)
+    painted = gops.irfft3(
+        filters.filter_kbox(gops.rfft3(newly.to(torch.float32)), kmag, filters.TOPHAT, r), shape)
     # the JAX package's float32 scalars: (4 pi / 3) (R / cell)^3, at least 1
     q = _f32(r) / _f32(box_lens[0] / shape[0])
     n_sph = max(_f32(4.0 * np.pi / 3.0) * (q * (q * q)), _f32(1.0))
@@ -573,6 +581,7 @@ def compute_ionization_field(
     vcb_box: torch.Tensor | None = None,
     halobox: HaloBox | None = None,
     photoncons_state=None,
+    mesh=None,
     *,
     device="cuda",
 ) -> IonizedBox:
@@ -591,15 +600,19 @@ def compute_ionization_field(
     `photoncons_state` (from `setup_photon_cons`) applies the photon
     non-conservation correction: a PhotonConsState shifts the redshift the
     box is computed at, a PhotonConsFit the escape parameters.  The box
-    keeps `redshift` as its own.  The fields are moved to `device` if they
-    live elsewhere."""
+    keeps `redshift` as its own.  With `mesh` (a parallel.mesh.Mesh) the
+    fields are this rank's x-slabs, the scan takes the slab FFT and the box
+    means are taken over the ranks.  The fields are moved to `device` if
+    they live elsewhere."""
     dev = resolve_device(device)
+    gops = for_mesh(mesh)
     so = inputs.simulation_options
     mo = inputs.matter_options
     ao = inputs.astro_options
     ap = inputs.astro_params
     cosmo = inputs.cosmology
     shape = so.lowres_shape
+    lshape = gops.local_shape(shape)
     box_lens = so.box_lens
     density = perturbed_field.density.to(dev)
 
@@ -667,7 +680,7 @@ def compute_ionization_field(
     prev_z_reion = (
         previous_ionized_box.z_reion.to(dev)
         if previous_ionized_box is not None
-        else torch.full(shape, -1.0, dtype=torch.float32, device=dev)
+        else torch.full(lshape, -1.0, dtype=torch.float32, device=dev)
     )
 
     # --- early exit: nothing ionizes (IonisationBox.c:1472-1475) ------------
@@ -677,13 +690,13 @@ def compute_ionization_field(
         else:
             rec_hist = RecombinationHistory(cosmo)
             xh = torch.full(
-                shape, float(1.0 - rec_hist.x_e(redshift)), dtype=torch.float32, device=dev
+                lshape, float(1.0 - rec_hist.x_e(redshift)), dtype=torch.float32, device=dev
             )
         return IonizedBox(
             redshift=np.float32(stored_redshift),
             neutral_fraction=xh,
             z_reion=prev_z_reion,
-            ionisation_rate_G12=torch.zeros(shape, dtype=torch.float32, device=dev),
+            ionisation_rate_G12=torch.zeros(lshape, dtype=torch.float32, device=dev),
             mean_f_coll=np.float32(mean_fcoll),
             mean_f_coll_MINI=np.float32(0.0),
             log10_Mturnover_ave=np.float32(log10_mturn_ave),
@@ -698,11 +711,10 @@ def compute_ionization_field(
     prev_mfc = prev_mfc_mini = 0.0
     if use_minihalos:
         mturn_a_box, mturn_m_box = mcrit_boxes(
-            redshift, inputs, sc, previous_ionized_box, spin_temp, vcb_box, dev)
+            redshift, inputs, sc, previous_ionized_box, spin_temp, vcb_box, dev, lshape)
         # the stage's one host sync: the float32 box means, as the JAX
         # package takes them
-        log10_mturn_ave, log10_mturn_m_ave = torch.stack(
-            [mturn_a_box.mean(), mturn_m_box.mean()]).tolist()
+        log10_mturn_ave, log10_mturn_m_ave = gops.means([mturn_a_box, mturn_m_box], shape)
 
         # global normalizations at the mean turnovers
         mt_a, mt_m = 10.0 ** log10_mturn_ave, 10.0 ** log10_mturn_m_ave
@@ -789,7 +801,7 @@ def compute_ionization_field(
         ):
             rec_box = previous_ionized_box.cumulative_recombinations.to(dev)
         else:
-            rec_box = torch.zeros(shape, dtype=torch.float32, device=dev)
+            rec_box = torch.zeros(lshape, dtype=torch.float32, device=dev)
 
     def device_rows(a):
         """Per-R table rows in scan order, flattened, as one float32 upload."""
@@ -830,7 +842,7 @@ def compute_ionization_field(
         lagr = dict(
             stars=halobox.n_ion.to(dev) / rho_b,
             wsfr=(halobox.whalo_sfr.to(dev) / rho_b if halobox.whalo_sfr is not None
-                  else torch.zeros(shape, dtype=torch.float32, device=dev)),
+                  else torch.zeros(lshape, dtype=torch.float32, device=dev)),
             source_filter=filters.EXP_MFP if ao.USE_EXP_FILTER else ao.hii_filter_int,
             mfp=float(_f32(25.483241248322766 / cosmo.hlittle)),  # Songaila+10 fit
         )
@@ -864,8 +876,7 @@ def compute_ionization_field(
 
     # Z-PHOTONCONS: the scan reads the density scaled to the adjusted redshift
     delta_adj = density * float(_f32(photoncons_factor)) if photoncons_factor != 1.0 else density
-    xh, gamma, mfp, z_reion, nion_stack, nion_mini_stack = _ionize_scan(
-        delta_adj, prev_z_reion, steps,
+    scan_kwargs = dict(
         shape=shape,
         box_lens=box_lens,
         hii_filter=inputs.astro_options.hii_filter_int,
@@ -886,7 +897,15 @@ def compute_ionization_field(
         lagr=lagr,
         paint_spheres=ao.IONISE_ENTIRE_SPHERE,
     )
-    del mini, lagr, delta_adj
+    if mesh is not None:
+        from ..parallel.shardcall import sharded_kernel_call
+
+        scan_out = sharded_kernel_call(
+            mesh, _ionize_scan, (delta_adj, prev_z_reion, steps), scan_kwargs, shape)
+    else:
+        scan_out = _ionize_scan(delta_adj, prev_z_reion, steps, **scan_kwargs)
+    xh, gamma, mfp, z_reion, nion_stack, nion_mini_stack = scan_out
+    del mini, lagr, delta_adj, scan_kwargs, scan_out
 
     # --- cumulative recombination update (set_recombination_rates:1258-1342) ---
     cumulative_rec = None
@@ -908,7 +927,7 @@ def compute_ionization_field(
                 float(_f32(fabs_dtdz * dz)),
             )
         else:  # homogeneous: single global rate broadcast
-            global_xh, global_gamma = torch.stack([xh.double().mean(), gamma.double().mean()]).tolist()
+            global_xh, global_gamma = gops.means([xh.double(), gamma.double()], shape)
             d_nrec = (
                 rt.evaluate(redshift, max(global_gamma, 1e-30))[0]
                 * fabs_dtdz

@@ -37,11 +37,12 @@ import dataclasses
 import numpy as np
 import torch
 
-from .._device import not_in_slice, resolve_device
+from .._device import resolve_device
 from ..cosmology.constants import FRACT_FLOAT_ERR, physconst
 from ..cosmology.recombination import RecombinationHistory
 from ..inputs import InputParameters
-from ..ops import fft, filters, grids
+from ..ops import filters
+from ..ops.gridops import SINGLE, for_mesh
 from ..outputs import PerturbedField, TsBox
 from . import heating, hmf, lya_heating
 from .ionization import (
@@ -371,7 +372,7 @@ def _trilerp(tbl, t, s, g, t_ax, s_ax, g_ax):
 def _ts_shell_scan(
     density_pf, prev_xe, shells, inv_growth_pf, fstar10, *,
     shape, box_lens, heat_filter, use_xray_heat, use_lya_heat, use_cheby, const_model,
-    mcrit_box=None, mcrit_clip=0.0, fstar7=0.0, lx_ratio=0.0, source=None,
+    mcrit_box=None, mcrit_clip=0.0, fstar7=0.0, lx_ratio=0.0, source=None, gops=SINGLE,
 ):
     """The radiative accumulators summed over the shells.
 
@@ -389,15 +390,16 @@ def _ts_shell_scan(
     shell stacks: `sfr`, `xray`, and with minihalos `sfr_mini` (then each
     shell also holds the Pop III and LW prefactors) and, under the Lya
     multiple-scattering window, the straight-line `sfr_lw` and `sfr_mini_lw`;
-    the densities are then not read.
+    the densities are then not read.  `gops` takes the FFTs, |k| and the
+    shell means (ops/gridops.py; on a mesh the grids are x-slabs).
     Returns the accumulators named by `_accumulator_names`."""
     lagrangian = source is not None
     use_minihalos = mcrit_box is not None
     use_mini_terms = use_minihalos or (lagrangian and source.get("sfr_mini") is not None)
     if not lagrangian:
-        kmag = grids.kmag_grid(shape, box_lens, density_pf.device)
-        d_k = fft.rfft3(density_pf * inv_growth_pf)
-        mc_k = fft.rfft3(mcrit_box) if use_minihalos else None
+        kmag = gops.kmag(shape, box_lens, density_pf.device)
+        d_k = gops.rfft3(density_pf * inv_growth_pf)
+        mc_k = gops.rfft3(mcrit_box) if use_minihalos else None
 
     # per-cell x_e interpolation index into the 14-point deposition-fraction
     # axis: the count of nodes <= x_e, less one
@@ -435,7 +437,7 @@ def _ts_shell_scan(
             sfr_term, sfr_term_mini, xray_sfr = _eulerian_shell_terms(
                 sh, d_k, mc_k, kmag, inv_growth_pf, fstar10, fstar7, lx_ratio, shape=shape,
                 heat_filter=heat_filter, use_cheby=use_cheby, const_model=const_model,
-                mcrit_clip=mcrit_clip)
+                mcrit_clip=mcrit_clip, gops=gops)
             sfr_term_lw, sfr_term_mini_lw = sfr_term, sfr_term_mini
 
         if use_xray_heat:
@@ -459,20 +461,20 @@ def _ts_shell_scan(
 
 
 def _eulerian_shell_terms(sh, d_k, mc_k, kmag, inv_growth_pf, fstar10, fstar7, lx_ratio, *,
-                          shape, heat_filter, use_cheby, const_model, mcrit_clip):
+                          shape, heat_filter, use_cheby, const_model, mcrit_clip, gops=SINGLE):
     """One shell's SFR terms (ACG, MCG or None) and X-ray source term from
     the filtered density (and with minihalos the filtered log10-Mcrit box):
     the conditional SFRD gathers, mean-fixed to the shell's global SFRD."""
     use_minihalos = mc_k is not None
     d_r = filters.filter_kbox(d_k, kmag, heat_filter, sh["R"]) if sh["do_filter"] else d_k
-    delta0 = fft.irfft3(d_r, shape)
+    delta0 = gops.irfft3(d_r, shape)
     if use_minihalos:
         # the filtered log10-Mcrit shell (reference fill_Rbox_table of
         # log10_Mcrit_LW, SpinTemperatureBox.c:1464-1473), clipped below at
         # the no-feedback LW threshold
         mc_r = mc_k if not sh["do_filter"] else filters.filter_kbox(
             mc_k, kmag, heat_filter, sh["R"])
-        mc_r = torch.clamp_min(fft.irfft3(mc_r, shape), mcrit_clip)
+        mc_r = torch.clamp_min(gops.irfft3(mc_r, shape), mcrit_clip)
     # aliasing clip at delta = -1 in PERTURBED-FIELD-redshift units, i.e.
     # BEFORE the 1/D(z_pf) extrapolation factor (fill_Rbox_table:619-625).
     # delta0 is z=0-normalized, so the floor is -1/D(z_pf).
@@ -503,9 +505,9 @@ def _eulerian_shell_terms(sh, d_k, mc_k, kmag, inv_growth_pf, fstar10, fstar7, l
         table_fc = sh["table_fc"]
         fc = table_fc[i0] * (1 - frac) + table_fc[i0 + 1] * frac
         fc = torch.where(delta_zpp >= sh["d_hi"], 1.0, fc)
-        ave_fcoll = torch.clamp_min(fc.mean(), 1e-35)
+        ave_fcoll = torch.clamp_min(gops.mean(fc, shape), 1e-35)
     else:
-        ave_fcoll = torch.clamp_min(fcoll.mean(), 1e-35)
+        ave_fcoll = torch.clamp_min(gops.mean(fcoll, shape), 1e-35)
     # form the O(1) grid/mean ratio BEFORE scaling by the global
     # expectation: mean_sfrd/ave_fcoll overflows float32 when the shell's
     # conditional SFRD is ~0 everywhere
@@ -523,7 +525,7 @@ def _eulerian_shell_terms(sh, d_k, mc_k, kmag, inv_growth_pf, fstar10, fstar7, l
         # own mean fix
         fcoll_mini = _gather2d(sh["table_mini"], N_DELTA_SFRD, mc_r, i0, frac)
         fcoll_mini = torch.clamp_min(fcoll_mini, 1e-35)
-        ave_mini = torch.clamp_min(fcoll_mini.mean(), 1e-35)
+        ave_mini = torch.clamp_min(gops.mean(fcoll_mini, shape), 1e-35)
         scale_mini = float(_f32(sh["zfac"]) * _f32(sh["mean_sfrd_mini"]) * _f32(fstar7))
         sfr_term_mini = (1.0 + delta_zpp) * (fcoll_mini / ave_mini) * scale_mini
         xray_sfr = (sfr_term + sfr_term_mini * lx_ratio) * sh["xr_fac"]
@@ -1257,11 +1259,12 @@ def compute_spin_temperature(
     minihalos `initial_conditions` gives the |v_cb| box (FLUCTS) and
     `previous_ionized_box` the reionization feedback.  `source_box` (an
     XraySourceBox, SOURCE_MODEL 'L-INTEGRAL') brings the Lagrangian sources:
-    its filtered shells replace the density-conditioned SFRD.  The fields are
-    moved to `device` if they live elsewhere."""
+    its filtered shells replace the density-conditioned SFRD.  With `mesh`
+    (a parallel.mesh.Mesh) the fields are this rank's x-slabs, the shell
+    scan takes the slab FFT and <x_e> and the turnover mean are taken over
+    the ranks.  The fields are moved to `device` if they live elsewhere."""
     dev = resolve_device(device)
-    if mesh is not None:
-        not_in_slice("a device mesh", 17)
+    gops = for_mesh(mesh)
     so = inputs.simulation_options
     ao = inputs.astro_options
 
@@ -1297,15 +1300,13 @@ def compute_spin_temperature(
         _, mcrit_box = mcrit_boxes(
             redshift, inputs, hmf.set_scaling_constants(redshift, inputs),
             previous_ionized_box, prev_state, getattr(initial_conditions, "lowres_vcb", None),
-            dev,
+            dev, gops.local_shape(so.lowres_shape),
         )
 
     # the one host sync of the step: <x_e> feeds the tau_X = 1 root finds,
     # the float32 mean of the turnover box the MCG terms
-    means = [prev_xe.double().mean()]
-    if mcrit_box is not None:
-        means.append(mcrit_box.mean().double())
-    means = torch.stack(means).tolist()
+    means = gops.means([prev_xe.double()] + ([mcrit_box] if mcrit_box is not None else []),
+                       so.lowres_shape)
     x_e_ave, ave_mcrit = means[0], (means[1] if mcrit_box is not None else 0.0)
     h = ts_host_tables(
         redshift, inputs, float(perturbed_field.redshift), prev_redshift, x_e_ave, ave_mcrit,
@@ -1322,12 +1323,19 @@ def compute_spin_temperature(
     if mcrit_box is not None:
         mini = dict(mcrit_box=mcrit_box, mcrit_clip=float(_f32(h["mcrit_clip"])),
                     fstar7=float(_f32(h["fstar7"])), lx_ratio=float(_f32(h["lx_ratio"])))
-    accs = _ts_shell_scan(
-        density, prev_xe, shells_from_tables(h, dev),
-        consts["inv_growth_pf"], float(_f32(h["fstar10"])),
+    scan_args = (density, prev_xe, shells_from_tables(h, dev), consts["inv_growth_pf"],
+                 float(_f32(h["fstar10"])))
+    scan_kwargs = dict(
         shape=so.lowres_shape, box_lens=so.box_lens, heat_filter=ao.heat_filter_int,
         use_cheby=h["use_cheby"], const_model=h["const_model"], source=source, **flags, **mini,
     )
+    if mesh is not None:
+        from ..parallel.shardcall import sharded_kernel_call
+
+        accs = sharded_kernel_call(mesh, _ts_shell_scan, scan_args, scan_kwargs, so.lowres_shape)
+    else:
+        accs = _ts_shell_scan(*scan_args, **scan_kwargs)
+    del scan_args, scan_kwargs
     del mcrit_box, mini, source
     ts, tk, x_e, j_lya, j_lw = _ts_cell_update(
         density, prev_ts, prev_tk, prev_xe, accs,

@@ -17,10 +17,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .._device import not_in_slice, resolve_device
+from .._device import resolve_device
 from ..cosmology.constants import H0_PER_h, physconst
 from ..inputs import InputParameters
-from ..ops import fft, filters, grids
+from ..ops import filters
+from ..ops.gridops import SINGLE, for_mesh
 from ..outputs import XraySourceBox
 from .spintemp import setup_z_edges
 
@@ -69,21 +70,24 @@ def _exact_shell_redshifts(redshift: float, r_outer: np.ndarray,
 
 def _annulus_scan(sfr_nodes, xray_nodes, sfr_mini_nodes, idx_lo, idx_hi, weights, r_inner,
                   r_outer, do_filter, live, ms_k_table, ms_w_tables, *, shape, box_lens,
-                  use_lw=False):
+                  use_lw=False, gops=SINGLE):
     """The shell stacks.  `*_nodes` are lists of the node grids (ascending
     redshift; `sfr_mini_nodes` None without minihalos, `ms_w_tables` None
     without multiple scattering); per shell `idx_lo`/`idx_hi`/`weights`
     interpolate between two nodes, `r_inner`/`r_outer` are the annulus,
     `do_filter` is False for the unfiltered first shell and `live` is False
     for shells beyond the oldest node or Z_HEAT_MAX, which stay 0.  Returns
-    the stacks (sfr, xray, sfr_mini, sfr_lw, sfr_mini_lw), None where unused."""
+    the stacks (sfr, xray, sfr_mini, sfr_lw, sfr_mini_lw), None where unused.
+    `gops` takes the FFTs and |k| (ops/gridops.py; on a mesh the grids are
+    x-slabs and `shape` the global shape)."""
     dev = sfr_nodes[0].device
     n_r = len(r_outer)
-    kmag = grids.kmag_grid(shape, box_lens, dev)
+    kmag = gops.kmag(shape, box_lens, dev)
     ms_grid = filters.ms_interp_grid(kmag, ms_k_table) if ms_w_tables is not None else None
 
     def stack(on):
-        return torch.zeros((n_r,) + tuple(shape), dtype=torch.float32, device=dev) if on else None
+        return (torch.zeros((n_r,) + gops.local_shape(shape), dtype=torch.float32, device=dev)
+                if on else None)
 
     use_mini = sfr_mini_nodes is not None
     out = dict(sfr=stack(True), xray=stack(True), sfr_mini=stack(use_mini),
@@ -112,11 +116,11 @@ def _annulus_scan(sfr_nodes, xray_nodes, sfr_mini_nodes, idx_lo, idx_hi, weights
                 if lw:
                     out[name + "_lw"][i] = out[name][i]
                 continue
-            g_k = fft.rfft3(grid)
+            g_k = gops.rfft3(grid)
             window = lya_w if lya else shell_w
-            out[name][i] = torch.clamp_min(fft.irfft3(g_k * window, shape), 0.0)
+            out[name][i] = torch.clamp_min(gops.irfft3(g_k * window, shape), 0.0)
             if lw:
-                out[name + "_lw"][i] = torch.clamp_min(fft.irfft3(g_k * shell_w, shape), 0.0)
+                out[name + "_lw"][i] = torch.clamp_min(gops.irfft3(g_k * shell_w, shape), 0.0)
     return out
 
 
@@ -138,10 +142,11 @@ def compute_xray_source_field(
     are read, so a history of HaloBoxes trimmed to those gives the same
     result.  previous_ionized_box sets the global x_HI entering the Lya
     diffusion scale when LYA_MULTIPLE_SCATTERING (reference
-    single_field.py:549-574)."""
+    single_field.py:549-574).  With `mesh` (a parallel.mesh.Mesh) the grids
+    are this rank's x-slabs, the shells are filtered by the slab FFT and
+    x_HI is the mean over the ranks."""
     dev = resolve_device(device)
-    if mesh is not None:
-        not_in_slice("a device mesh", 17)
+    gops = for_mesh(mesh)
     so = inputs.simulation_options
     ao = inputs.astro_options
     shape = so.lowres_shape
@@ -179,7 +184,7 @@ def compute_xray_source_field(
                     "coeval chain slimming (drivers/coeval._slim_chain_ion) "
                     "only keeps it when the sources come from grids"
                 )
-            x_HI = float(previous_ionized_box.neutral_fraction.double().mean())
+            x_HI = float(gops.mean(previous_ionized_box.neutral_fraction.double(), shape))
         else:
             x_HI = 1.0
         r_star = lya_diffusion_scale(redshift, inputs, x_HI)
@@ -194,13 +199,20 @@ def compute_xray_source_field(
     def grids_of(name):
         return [getattr(t[1], name).to(dev) for t in nodes]
 
-    shells = _annulus_scan(
+    scan_args = (
         grids_of("halo_sfr"), grids_of("halo_xray"),
         grids_of("halo_sfr_mini") if use_mini else None,
         idx_lo, idx_hi, w, ladder.R_inner, ladder.R, ladder.R_inner > 0, live_shell,
-        ms_k_table, ms_w_tables, shape=shape, box_lens=so.box_lens,
-        use_lw=use_ms and use_mini,
+        ms_k_table, ms_w_tables,
     )
+    scan_kwargs = dict(shape=shape, box_lens=so.box_lens, use_lw=use_ms and use_mini)
+    if mesh is not None:
+        from ..parallel.shardcall import sharded_kernel_call
+
+        shells = sharded_kernel_call(mesh, _annulus_scan, scan_args, scan_kwargs, shape)
+    else:
+        shells = _annulus_scan(*scan_args, **scan_kwargs)
+    del scan_args
     mean_mcrit = None
     if use_mini:
         # per-shell mean log10 MCG turnover, z-interpolated between nodes

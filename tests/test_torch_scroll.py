@@ -209,8 +209,10 @@ def test_no_evolution_means_no_coupling(calls):
          "Z-PHOTONCONS-raises", "BINARY-SPLIT", "cache-raises", "mesh-raises"],
 )
 def test_evolving_options_outside_the_slice_raise(over, item, tmp_path):
-    """Every evolving option runs down the node ladder; what is still not
-    ported (a device mesh, item 17) raises.  The output cache (item 16) runs:
+    """Every evolving option runs down the node ladder.  A device mesh (item
+    17) runs too: the sharded scroll on a gloo mesh of one rank meets the
+    single-device scroll, and a mesh that is not a parallel.mesh.Mesh
+    raises.  The output cache (item 16) runs:
     a scroll with one writes every node, a second run resumes from it to the
     same boxes, and a cache that is not an OutputCache raises."""
     inp = _small_inputs(**over).with_logspaced_redshifts(8.0, 12.0)
@@ -254,5 +256,18 @@ def test_evolving_options_outside_the_slice_raise(over, item, tmp_path):
                 assert out.ionized_box.unnormalised_nion_mini.ndim == 4
                 assert float(out.ionized_box.log10_Mturnover_MINI_ave) > 5.0
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 item {item}"):
+    from _torch_parallel import one_rank_mesh
+
+    from py21cmfast_torch.parallel.driver import run_sharded_coeval
+
+    assert item == 17
+    with one_rank_mesh(tmp_path) as mesh:
+        (got,) = run_sharded_coeval(inp, [8.0], mesh=mesh)
+    ref = t21.run_coeval(inp, 8.0, device="cpu")
+    ts, ts_ref = got.spin_temperature.numpy(), ref.spin_temp.spin_temperature.numpy()
+    assert np.abs(ts - ts_ref).max() <= 1e-4 * np.abs(ts_ref).max()
+    xh, xh_ref = got.neutral_fraction.numpy(), ref.neutral_fraction.numpy()
+    assert abs(xh.mean() - xh_ref.mean()) < 1e-3
+    assert np.mean(np.round(xh, 3) != np.round(xh_ref, 3)) < 5e-3
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         tsp.compute_spin_temperature(8.0, inp, None, mesh=object(), device="cpu")

@@ -10,8 +10,10 @@ py21cmfast_torch.interop, so a stage is compared on identical state:
   Tb          max-abs <= 1e-5 max|Tb|.
 The whole coeval from one shared hires density meets the gates of
 tests/test_golden.py against the JAX package run on that density.
-Plus the port's guards: no JAX imports, no silent CPU fallback, and
-NotImplementedError for options outside the slice.
+Plus the port's guards: no JAX imports (py21cmfast_torch.parallel
+included), `torch.distributed` imported only by py21cmfast_torch.parallel,
+which `import py21cmfast_torch` does not load, no silent CPU fallback, and
+the options of earlier slices running on the CPU, a device mesh among them.
 """
 
 import _torch_threads  # noqa: F401
@@ -226,6 +228,47 @@ def test_import_loads_no_jax():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+def test_parallel_import_loads_no_jax():
+    """Every module of the multi-GPU layer imports without JAX."""
+    mods = [f"py21cmfast_torch.parallel.{p.stem}"
+            for p in sorted((REPO / "py21cmfast_torch" / "parallel").glob("*.py"))
+            if p.stem != "__init__"]
+    assert len(mods) == 8
+    code = (
+        "import sys, importlib; before = set(sys.modules)\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "new = [m for m in set(sys.modules) - before "
+        "if m.split('.')[0] in ('jax', 'jaxlib', 'py21cmfast_tpu')]; "
+        "print(new); sys.exit(1 if new else 0)"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_import_forms_no_process_group():
+    """`import py21cmfast_torch` loads no torch.distributed module beyond
+    those `import torch` loads, not py21cmfast_torch.parallel, and forms no
+    process group; and only py21cmfast_torch/parallel imports
+    torch.distributed."""
+    code = (
+        "import sys, torch; before = {m for m in sys.modules if m.startswith('torch.distributed')}\n"
+        "import py21cmfast_torch, torch.distributed as dist\n"
+        "after = {m for m in sys.modules if m.startswith('torch.distributed')}\n"
+        "assert after == before, sorted(after - before)\n"
+        "assert not any(m.startswith('py21cmfast_torch.parallel') for m in sys.modules)\n"
+        "assert not dist.is_initialized()\n"
+        "print('CLEAN')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                          timeout=300)
+    assert "CLEAN" in proc.stdout, proc.stdout + proc.stderr
+    files = sorted((REPO / "py21cmfast_torch").rglob("*.py"))
+    users = {str(f.relative_to(REPO)) for f in files for m in _imported_modules(f)
+             if m.startswith("torch.distributed")}
+    assert users and all(u.startswith("py21cmfast_torch/parallel/") for u in users), users
+
+
 def _imported_modules(path):
     for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
         if isinstance(node, ast.Import):
@@ -302,8 +345,6 @@ RUN_ON_CPU = (
     dict(PHOTON_CONS_TYPE="Z-PHOTONCONS"),
     dict(DIM=20),
 )
-# what still raises, by the ROADMAP item that brings it
-STILL_RAISING = {"mesh": 17}
 
 
 @pytest.mark.parametrize(
@@ -326,14 +367,15 @@ STILL_RAISING = {"mesh": 17}
     ids=lambda d: ",".join(f"{k}={v}" for k, v in d.items()),
 )
 def test_options_outside_the_slice_raise(over, tmp_path):
-    """What is not ported raises, naming its ROADMAP item: a device mesh
-    (item 17).  The minihalo and v_cb options (item 11), L-INTEGRAL (item
-    12), IONISE_ENTIRE_SPHERE (item 6), the halo samplers CHMF-SAMPLER and
+    """Every option that once raised here runs on the CPU and gives finite
+    boxes: the minihalo and v_cb options (item 11), L-INTEGRAL (item 12),
+    IONISE_ENTIRE_SPHERE (item 6), the halo samplers CHMF-SAMPLER and
     DEXM-ESF with every progenitor method (item 13; the PARTITION and
     BINARY-SPLIT cases down a node ladder, so that progenitors are sampled),
-    Z-PHOTONCONS (item 14), a non-integer DIM/HII_DIM (item 5) and the output
-    cache (item 16, which writes the run's boxes) run on the CPU and give
-    finite boxes."""
+    Z-PHOTONCONS (item 14), a non-integer DIM/HII_DIM (item 5), the output
+    cache (item 16, which writes the run's boxes) and a device mesh (item
+    17: the sharded coeval on a gloo mesh of one rank, whose boxes are the
+    whole boxes)."""
     inp = t21.InputParameters(random_seed=1).evolve_input_structs(
         HII_DIM=8, DIM=16, BOX_LEN=16.0, SOURCE_MODEL="E-INTEGRAL").evolve_input_structs(
         **{k: v for k, v in over.items() if k not in ("cache", "mesh")})
@@ -369,9 +411,17 @@ def test_options_outside_the_slice_raise(over, tmp_path):
             assert t21.setup_photon_cons(inp, device="cpu").adjusted_redshift(8.0) < 8.0
         assert tuple(out.density.shape) == (8, 8, 8)
         return
-    (what,) = over
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 item {STILL_RAISING[what]}"):
-        t21.compute_xray_source_field(8.0, inp, [], mesh=object(), device="cpu")
+    from _torch_parallel import one_rank_mesh
+
+    from py21cmfast_torch.parallel.driver import run_sharded_coeval
+
+    assert over == dict(mesh=True)
+    with one_rank_mesh(tmp_path) as mesh:
+        (out,) = run_sharded_coeval(inp, [8.0], mesh=mesh)
+    ref = t21.run_coeval(inp, 8.0, device="cpu")
+    assert tuple(out.density.shape) == (8, 8, 8)
+    assert np.isfinite(out.brightness_temp.numpy()).all()
+    assert abs(float(out.neutral_fraction.mean()) - float(ref.neutral_fraction.mean())) < 1e-3
 
 
 def test_cache_and_node_scroll_raise(tmp_path):
@@ -379,8 +429,9 @@ def test_cache_and_node_scroll_raise(tmp_path):
     ladder, before anything is computed; an OutputCache runs with both
     (tests/test_torch_io.py resumes from it).  The node scroll itself runs
     (tests/test_torch_scroll.py, with Lagrangian source boxes
-    tests/test_torch_fixed_halos.py), and a device mesh handed to its Ts
-    step or to the XraySourceBox raises."""
+    tests/test_torch_fixed_halos.py), and a mesh that is not a
+    parallel.mesh.Mesh handed to its Ts step or to the XraySourceBox
+    raises."""
     from py21cmfast_torch.models import spintemp as tspin
 
     inp = t21.InputParameters(random_seed=1).evolve_input_structs(
@@ -394,9 +445,9 @@ def test_cache_and_node_scroll_raise(tmp_path):
         cache = t21.OutputCache(tmp_path / str(len(run.node_redshifts)))
         t21.run_coeval(run, 8.0, cache=cache, device="cpu")
         assert cache.exists(t21.BrightnessTemp, run, 8.0)
-    with pytest.raises(NotImplementedError, match="mesh.*item 17"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         tspin.compute_spin_temperature(8.0, inp, None, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh.*item 17"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         t21.compute_xray_source_field(8.0, inp, [], mesh=object(), device="cpu")
 
 

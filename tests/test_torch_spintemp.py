@@ -349,20 +349,34 @@ def test_first_node_and_z_heat_max_give_the_initial_state(chain):
 @pytest.mark.parametrize(
     "kwargs, over, match",
     [(dict(source_box="empty"), dict(SOURCE_MODEL="CHMF-SAMPLER"), None),
-     (dict(mesh=object()), dict(), "item 17")],
+     (dict(mesh="one rank"), dict(), None)],
     ids=["source_box", "mesh"],
 )
-def test_arguments_outside_the_slice_raise(chain, kwargs, over, match):
-    """A device mesh still raises; a source box runs for the fixed-grid
+def test_arguments_outside_the_slice_raise(chain, kwargs, over, match, tmp_path):
+    """Both arguments once raised and run now.  A device mesh (item 17):
+    the step on a gloo mesh of one rank, which is not sharded, gives the
+    single-device TsBox exactly (the sharded step runs in
+    tests/test_torch_parallel_slice.py), and a mesh that is not a
+    parallel.mesh.Mesh raises.  A source box runs for the fixed-grid
     sources (tests/test_torch_fixed_halos.py) and, since the discrete-halo
     slice, for the halo sampler's (tests/test_torch_halos.py): here a box
     with no sources in any shell gives a finite TsBox."""
     nd, prev = chain["nodes"][2], chain["nodes"][1]
     pf = interop.perturbed_field_from_numpy(_numpy(nd["pf"]), "cpu")
     inputs = chain["tinp"].evolve_input_structs(**over) if over else chain["tinp"]
-    if match is not None:
-        with pytest.raises(NotImplementedError, match=match):
-            tsp.compute_spin_temperature(nd["z"], inputs, pf, device="cpu", **kwargs)
+    if "mesh" in kwargs:
+        from _torch_parallel import one_rank_mesh
+
+        state = dict(prev_state=interop.ts_box_from_numpy(_numpy(prev["ts"]), "cpu"),
+                     prev_redshift=prev["z"])
+        ref, _ = tsp.compute_spin_temperature(nd["z"], inputs, pf, device="cpu", **state)
+        with one_rank_mesh(tmp_path) as mesh:
+            got, _ = tsp.compute_spin_temperature(nd["z"], inputs, pf, mesh=mesh, device="cpu",
+                                                  **state)
+        for name in ("spin_temperature", "kinetic_temp_neutral", "xray_ionised_fraction"):
+            np.testing.assert_array_equal(getattr(got, name).numpy(), getattr(ref, name).numpy())
+        with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
+            tsp.compute_spin_temperature(nd["z"], inputs, pf, mesh=object(), device="cpu")
         return
     n_shells = len(tsp.setup_z_edges(nd["z"], inputs).R)
     shells = torch.zeros((n_shells,) + inputs.simulation_options.lowres_shape)
