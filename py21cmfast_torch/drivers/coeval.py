@@ -30,7 +30,7 @@ import dataclasses
 import numpy as np
 
 from .._device import resolve_device
-from ..exceptions import check_nonfinite
+from ..exceptions import begin_validate_snapshot, check_nonfinite
 from ..inputs import InputParameters
 from ..io import h5 as h5io
 from ..io.caching import CacheConfig, OutputCache, RunCache
@@ -128,7 +128,9 @@ def generate_coeval(
 ):
     """Yield a Coeval at each requested redshift, highest first, evolving
     down the node-redshift ladder (reference _redshift_loop_generator,
-    coeval.py:749).  Every snapshot's fields are checked for NaN/Inf.
+    coeval.py:749).  Every snapshot's fields are checked for NaN/Inf one
+    node late, as in the JAX package: a non-finite node is raised on after
+    its Coeval was yielded, at the next node or after the last one.
 
     With an `OutputCache` as `cache`, the boxes that `cache_config` names
     (all by default) are written, and the scroll resumes after the last
@@ -196,6 +198,7 @@ def generate_coeval(
     prev_z = None
     ts_state = None  # the previous TsBox (its J_21_LW sets the LW feedback)
     halobox_nodes = []  # (z, trimmed HaloBox) history for the XraySourceBox shells
+    pending_validation = None
     for i, z in enumerate(all_z):
         wanted = (not out_redshifts) or any(abs(z - oz) < 1e-8 for oz in out_redshifts)
         if z in resumed:
@@ -278,7 +281,10 @@ def generate_coeval(
         # read: release the scroll's hold on them now
         prev_ion = prev_pf = None
         tb = brightness_temperature(inputs, ion, pf, spin_temp=ts, device=dev)
-        check_nonfinite(z, pf, halobox, ts, ion, tb)
+        # lag-1 validation, as the JAX package's scroll: check the previous
+        # node's sweep (its copy is long done), start this node's unwaited
+        check_nonfinite(pending_validation)
+        pending_validation = begin_validate_snapshot(z, pf, halobox, ts, ion, tb)
         for box in (pf, halobox, ts, ion, tb):
             cache_write(box, z)
 
@@ -299,6 +305,9 @@ def generate_coeval(
         prev_pf = _slim_chain_pf(pf, needed=ao.USE_MINI_HALOS and not lagrangian)
         prev_z = z
         del ion, pf, ts, tb, halobox
+
+    # the last node's sweep has no successor to check it
+    check_nonfinite(pending_validation)
 
 
 def run_coeval(

@@ -190,7 +190,8 @@ def generate_lightcone(
         if i_node > last_completed:
             if global_quantities:
                 means.append(torch.stack(
-                    [lightconer.get_field(coeval, q).mean() for q in global_quantities]))
+                    [lightconer.get_field(coeval, q, device=True).mean()
+                     for q in global_quantities]))
             if prev_coeval is not None:
                 for q in quantities:
                     idx, vals = lightconer.make_lightcone_slices(

@@ -5,14 +5,12 @@ exit-code protocol becomes plain Python exceptions; the per-cell NaN/Inf
 sweeps of the C kernels (e.g. SpinTemperatureBox.c:1915-1935) become one
 device-side count per snapshot.
 
-The drivers call `check_nonfinite(z, *outputs)`: the counts of every float
-field of a snapshot are stacked on the device and fetched in one transfer.
-`validate_box` and `validate_snapshot` keep the JAX package's names and
-messages for callers that check a box or a snapshot themselves.  The JAX
-package's `begin_validate_snapshot` and its pending handle have no
-counterpart: they exist to overlap the sweep of one node with the next
-node's jitted program on the TPU, and here the count is one small transfer
-after the node's kernels.
+The scroll validates one node late, as the JAX package's does:
+`begin_validate_snapshot` stacks the counts of every float field of a
+snapshot on the device and starts their copy to the host without waiting,
+and `check_nonfinite` of that handle, called at the next node (and once
+after the last), waits on the copy and raises.  `validate_snapshot` does
+both at once; `validate_box` checks one box.
 """
 
 from __future__ import annotations
@@ -27,6 +25,7 @@ __all__ = [
     "TableGenerationError",
     "InfinityOrNaNError",
     "PhotonConsError",
+    "begin_validate_snapshot",
     "check_nonfinite",
     "validate_box",
     "validate_snapshot",
@@ -78,36 +77,62 @@ def validate_box(output, fields=None, context=""):
 
 def validate_snapshot(z, *outputs):
     """Validate every box of a snapshot if config['validate_outputs'] is set."""
-    check_nonfinite(z, *outputs)
+    check_nonfinite(begin_validate_snapshot(z, *outputs))
 
 
-def check_nonfinite(z, *outputs):
-    """Raise InfinityOrNaNError if any float field of the given output structs
-    holds a NaN or Inf.  The counts of all device fields are stacked on the
-    device and fetched in one transfer.  Skipped when
-    `config["validate_outputs"]` is off."""
+def begin_validate_snapshot(z, *outputs):
+    """Start the non-finite sweep of a snapshot without waiting on it.
+
+    Returns a pending handle for `check_nonfinite`, or None when
+    `config["validate_outputs"]` is off.  The counts of every float device
+    field with ndim > 0 are stacked in one device op; on a CUDA device they
+    are copied into pinned host memory without blocking and an event is
+    recorded after the copy, so the scroll checks node i while node i+1
+    computes.  Host (numpy) fields are counted at once."""
     from ._cfg import config
 
     if not config.get("validate_outputs", True):
-        return
-    names, counts, bad = [], [], []
+        return None
+    names, counts, host_bad = [], [], []
     for out in outputs:
         if out is None or not dataclasses.is_dataclass(out):
             continue
         for f in dataclasses.fields(out):
             val = getattr(out, f.name)
+            if val is None:
+                continue
             label = f"{type(out).__name__}.{f.name}"
             if isinstance(val, torch.Tensor):
-                if val.is_floating_point():
+                if val.is_floating_point() and val.ndim > 0:
                     names.append(label)
                     counts.append((~torch.isfinite(val)).sum())
-            elif val is not None:
+            else:
                 arr = np.asarray(val)
                 if arr.dtype.kind == "f" and (n := int(np.sum(~np.isfinite(arr)))):
-                    bad.append((label, n))
+                    host_bad.append((label, n))
+    stacked, done = None, None
     if counts:
-        vals = torch.stack([c.to(counts[0].device) for c in counts]).cpu().tolist()
-        bad += [(n, v) for n, v in zip(names, vals) if v]
+        stacked = torch.stack([c.to(counts[0].device) for c in counts])
+        if stacked.is_cuda:
+            host = torch.empty(stacked.shape, dtype=stacked.dtype, pin_memory=True)
+            host.copy_(stacked, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+            stacked = host
+    return (float(z), names, stacked, done, host_bad)
+
+
+def check_nonfinite(pending):
+    """Wait on a `begin_validate_snapshot` handle (its copy's event, not the
+    whole device) and raise InfinityOrNaNError on any non-finite count."""
+    if pending is None:
+        return
+    z, names, counts, done, host_bad = pending
+    bad = list(host_bad)
+    if counts is not None:
+        if done is not None:
+            done.synchronize()
+        bad += [(n, v) for n, v in zip(names, counts.tolist()) if v]
     if bad:
         msgs = ", ".join(f"{n} has {v} non-finite values" for n, v in bad)
-        raise InfinityOrNaNError(f"{msgs} (z={float(z):.3f})")
+        raise InfinityOrNaNError(f"{msgs} (z={z:.3f})")

@@ -85,24 +85,30 @@ class Lightconer:
         coeval_low is at the lower redshift (smaller distance)."""
         raise NotImplementedError
 
-    def get_field(self, coeval, quantity):
-        """The named field of a Coeval: a tensor on the run's device (None
-        where the configuration does not fill it)."""
+    def get_field(self, coeval, quantity, device=False):
+        """The named field of a Coeval: a host numpy array, or with
+        `device=True` the tensor on the run's device (slicing and means then
+        run there and only the slices move); None where the configuration
+        does not fill it."""
         if quantity == "brightness_temp":
-            return coeval.brightness_temperature.brightness_temp
-        if quantity == "tau_21":
-            return coeval.brightness_temperature.tau_21
-        if quantity in ("density", "velocity_z", "velocity_x", "velocity_y"):
-            return getattr(coeval.perturbed_field, quantity)
-        if quantity in ("neutral_fraction", "z_reion", "ionisation_rate_G12",
-                        "cumulative_recombinations"):
-            return getattr(coeval.ionized_box, quantity)
-        if quantity in ("spin_temperature", "kinetic_temp_neutral",
-                        "xray_ionised_fraction", "J_21_LW"):
+            out = coeval.brightness_temperature.brightness_temp
+        elif quantity == "tau_21":
+            out = coeval.brightness_temperature.tau_21
+        elif quantity in ("density", "velocity_z", "velocity_x", "velocity_y"):
+            out = getattr(coeval.perturbed_field, quantity)
+        elif quantity in ("neutral_fraction", "z_reion", "ionisation_rate_G12",
+                          "cumulative_recombinations"):
+            out = getattr(coeval.ionized_box, quantity)
+        elif quantity in ("spin_temperature", "kinetic_temp_neutral",
+                          "xray_ionised_fraction", "J_21_LW"):
             if coeval.spin_temp is None:
                 raise ValueError(f"{quantity} requires USE_TS_FLUCT")
-            return getattr(coeval.spin_temp, quantity)
-        raise ValueError(f"unknown lightcone quantity {quantity}")
+            out = getattr(coeval.spin_temp, quantity)
+        else:
+            raise ValueError(f"unknown lightcone quantity {quantity}")
+        if device or out is None:
+            return out
+        return out.detach().cpu().numpy()
 
 
 class RectilinearLightconer(Lightconer):
@@ -128,8 +134,8 @@ class RectilinearLightconer(Lightconer):
         len(idx)) interpolated slices, on the coevals' device; (None, None)
         where no slice falls between the two or the field is not filled."""
         sched = self._slice_schedule(coeval_low, coeval_high, cosmo, inputs)
-        box_lo = self.get_field(coeval_low, quantity)
-        box_hi = self.get_field(coeval_high, quantity)
+        box_lo = self.get_field(coeval_low, quantity, device=True)
+        box_hi = self.get_field(coeval_high, quantity, device=True)
         if sched is None or box_lo is None or box_hi is None:
             return None, None
         idx, pix, w = sched
@@ -188,8 +194,8 @@ class AngularLightconer(Lightconer):
         """(idx, vals): the cone's slice indices as a tensor and the (npix,
         len(idx)) float32 samples, on the coevals' device."""
         idx, d_low, d_high = self._selected(coeval_low, coeval_high, cosmo)
-        box_lo = self.get_field(coeval_low, quantity)
-        box_hi = self.get_field(coeval_high, quantity)
+        box_lo = self.get_field(coeval_low, quantity, device=True)
+        box_hi = self.get_field(coeval_high, quantity, device=True)
         if idx is None or box_lo is None or box_hi is None:
             return None, None
         dists = self.lc_distances[idx]

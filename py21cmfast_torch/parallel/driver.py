@@ -302,7 +302,7 @@ def run_sharded_lightcone(
     for coeval in run_sharded_coeval(inputs, list(node_z), mesh=mesh, white=white):
         if global_quantities:
             means.append(gops.means(
-                [lightconer.get_field(coeval, q) for q in global_quantities], shape))
+                [lightconer.get_field(coeval, q, device=True) for q in global_quantities], shape))
         if prev is not None:
             for q in quantities:
                 idx, vals = lightconer.make_lightcone_slices(coeval, prev, cosmo, inputs, q)
