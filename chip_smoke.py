@@ -62,9 +62,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      after (one deposit launch per node), with the seconds per node, the host
      time of the Ts step and what the table prefetch hid of it;
   8. per-stage wall and device-busy times at three nodes of that scroll;
-  9. the third main path, the repo's headline lightcone (bench.py:73-91:
-     HII_DIM=256, DIM=768, BOX_LEN=384, USE_TS_FLUCT, inhomogeneous
-     recombinations, 92 nodes from z=35.37 to z=5, 2566 slices) through
+  9. the third main path, the repo's headline lightcone: bench.py's physics
+     (bench.py:73-91) with MINIMIZE_MEMORY on, which bench.py turns on only
+     at DIM >= 4 HII_DIM (its full768 segment is bench_torch.py's
+     full768), at HII_DIM=256, DIM=768, BOX_LEN=384, USE_TS_FLUCT,
+     inhomogeneous recombinations, 92 nodes from z=35.37 to z=5, 2566
+     slices, through
      generate_lightcone with the velocity-gradient correction and RSDs,
      launch counts zeroed just before and read just after (one deposit
      launch per node): seconds per node, the finalization's steps with their
@@ -73,15 +76,14 @@ Phases, in order; any failure raises and the script exits non-zero:
      (torch.cuda.set_sync_debug_mode), and the stages of the node nearest
      z=8;
   10. the fourth main path: the Munoz21 (EOS21) lightcone at the headline's
-     box and ladder (256³/768³, 92 nodes to z=5, dvdr and RSDs), its ICs
-     with the v_cb box timed first; as phase 9, with ⟨J_21_LW⟩ and the
-     turnover means per node and the stages of the nodes nearest z=8 and
-     z=15;
+     box and ladder cut to z=15 (256³/768³, 42 nodes, dvdr and RSDs), its
+     ICs with the v_cb box timed first; as phase 9, with ⟨J_21_LW⟩ and the
+     turnover means per node and the stages of the last node (z=15);
   11. the fifth main path: the fixed-halos template (L-INTEGRAL sources
      through the HaloBox and the XraySourceBox, USE_EXP_FILTER, CELL_RECOMB)
-     at the headline's box and ladder, as phase 9: seconds per node, peak
-     memory, 92 deposit launches, a fully written finite cone, and the node
-     nearest z=8 by stage (the HaloBox's host tables, gathers and
+     at the headline's box and ladder cut to z=15, as phase 9: seconds per
+     node, peak memory, 42 deposit launches, a fully written finite cone,
+     and the last node (z=15) by stage (the HaloBox's host tables, gathers and
      displacement scatter apart, the XraySourceBox, Ts, ionize, Tb), with
      CUDA-event times of the displacement scatter;
   12. the sixth main path: the latest-discrete template (CHMF-SAMPLER with
@@ -96,8 +98,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      properties, the halo CIC with CUDA-event times, the sub-sampler grids,
      the XraySourceBox, Ts, ionize, Tb).
   13. the headline lightcone of phase 9 under Z-PHOTONCONS (run right after
-     phase 9, from its ICs), its ladder cut to z=8: the calibration's
-     coevals, z range and wall, seconds per node, <xH> and <Tb> at z=8
+     phase 9, from its ICs), its ladder cut to z=15: the calibration's
+     coevals, z range and wall, seconds per node, <xH> and <Tb> at z=15
      beside phase 9's, peak memory, one deposit launch a node and a
      calibration step;
   14. generate_coeval of the latest-discrete template at phase 12's box
@@ -112,7 +114,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      difference of Ts, Tk, x_e and xH at every node;
   16. (right after phase 13) the command line: `python -m py21cmfast_torch
      template avail` and `run params` in subprocesses, then `cli.main` of
-     `run lightcone` on the headline's settings cut to z=10 (61 nodes, one
+     `run lightcone` on the headline's settings cut to z=15 (42 nodes, one
      deposit launch each), its wall, launches, peak memory and output line;
      the power spectrum of a z~8 chunk of phase 9's Tb cone on the card
      against the CPU, the Thomson optical depth of phase 9's global xH, and
@@ -128,6 +130,16 @@ Phases, in order; any failure raises and the script exits non-zero:
      of the same seed, with its wall by part, the time inside collectives
      and each rank's peak memory; 17e 17b over NCCL with one card a rank,
      only where there are two cards.
+  18. (last) bench_torch.py's faithful segment, bench.py's full1024: the
+     reference's own DIM = 4 HII_DIM ratio, HII_DIM=256, DIM=1024,
+     MINIMIZE_MEMORY on: the 1024^3 ICs' first call and peak memory; the
+     ratio-4 kernel against its plain version (run in hires x-slabs: whole,
+     it does not fit the card) on the perturb's own z=8 inputs at 1024^3 ->
+     256^3, with phase 3's timings and bound; then
+     bench_torch.run_full_lightcone(256, 1024) cut in depth to z=8 (72 of
+     its 92 nodes; bench_torch.py runs them all), launch counts zeroed just
+     before and read just after (one deposit launch a node), a fully written
+     finite cone and the peak memory.
 The line before the last is a JSON object of kernel numbers; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero and
 prints no result.
@@ -213,7 +225,8 @@ def build_kernels():
         lines = log.splitlines()
         for i, line in enumerate(lines):
             # ptxas names the function, then its stack and spills, then registers
-            if "Compiling entry function" in line and "kernelILi3E" in line:
+            # the R = 3 kernel of the headline and the R = 4 one of phase 18
+            if "Compiling entry function" in line and ("kernelILi3E" in line or "kernelILi4E" in line):
                 print(f"[build] {name}: {line.split(chr(39))[1]}: "
                       + "; ".join(x.strip() for x in lines[i + 1:i + 4] if "bytes" in x or "registers" in x))
     _print_shared_atomic_opcodes()
@@ -279,7 +292,7 @@ def global_path_share(d, ratio):
     return 1.0 - inside.mean().item()
 
 
-def check_deposit(hires, d, d_init, ratio, label):
+def check_deposit(hires, d, d_init, ratio, label, plain_rows=None):
     """Kernel vs plain on the card (masses must be positive), cell by cell:
     |kernel - plain| <= 1e-5 max(plain_cell, mean(plain)), and the kernel's
     total mass equal to the plain total and to the exact particle mass within
@@ -287,12 +300,13 @@ def check_deposit(hires, d, d_init, ratio, label):
     run-dependent order; the rounding of such a sum grows with the cell's own
     mass (the plain version adds ~1700 single terms into a cell of 8x the mean
     mass at the main-path shape, at an ulp of 1.5e-5), so the bound follows
-    the cell where it holds more than the mean."""
+    the cell where it holds more than the mean.  `plain_rows` runs the plain
+    version in hires x-slabs of that many rows (one accumulator)."""
     import torch
 
     from py21cmfast_torch.ops import deposit
 
-    plain = deposit.cic_deposit_swept_plain(hires, *d, d_init, ratio)
+    plain = deposit.cic_deposit_swept_plain(hires, *d, d_init, ratio, x_rows=plain_rows)
     got = deposit.cic_deposit_swept(hires, *d, d_init, ratio)
     torch.cuda.synchronize()
     diff = (got - plain).abs()
@@ -333,7 +347,7 @@ DEPOSIT_CASES = [
 ]
 
 
-def _time_deposit(hires, d, d_init, ratio, label, reps=20):
+def _time_deposit(hires, d, d_init, ratio, label, reps=20, plain_rows=None):
     """Kernel against plain at one shape, then CUDA-event timings: the
     kernel's median of single calls (each between its own pair of events, so
     it holds the host's time to enqueue one call), a call in a run of 50, the
@@ -342,7 +356,7 @@ def _time_deposit(hires, d, d_init, ratio, label, reps=20):
 
     from py21cmfast_torch.ops import deposit
 
-    err, worst = check_deposit(hires, d, d_init, ratio, label)
+    err, worst = check_deposit(hires, d, d_init, ratio, label, plain_rows)
 
     def kernel():
         return deposit.cic_deposit_swept(hires, *d, d_init, ratio)
@@ -373,7 +387,8 @@ def _time_deposit(hires, d, d_init, ratio, label, reps=20):
 
     # kernel, plain, kernel again: one card, in turns
     kernel_ms, batch_ms = _event_median_ms(kernel, reps), batched_ms()
-    plain_ms = _event_median_ms(lambda: deposit.cic_deposit_swept_plain(hires, *d, d_init, ratio),
+    plain_ms = _event_median_ms(lambda: deposit.cic_deposit_swept_plain(hires, *d, d_init, ratio,
+                                                                          x_rows=plain_rows),
                                 max(3, reps // 2))
     host_ms = host_call_ms()
     print(f"[deposit] {label}, kernel again: {_event_median_ms(kernel, reps):.4f} ms (median of "
@@ -1819,18 +1834,26 @@ def slice_small_phase():
 
 HEADLINE_SEED = 3
 HEADLINE_Z_END = 5.0
-# phases 10 and 11 run the headline's box and ladder down to z=8 only (72 of
-# its 92 nodes): the depth cut that keeps the whole script within its time
-# once phases 4h and 13-15 joined it
+# phase 12 runs the headline's ladder down to z=8 only (72 of its 92 nodes):
+# the depth cut that keeps the whole script within its time once phases 4h
+# and 13-15 joined it
 CUT_Z_END = 8.0
+# phases 10, 11, 13 and 16 run the headline's box and ladder down to z=15
+# (42 nodes), and phase 18 down to z=8: the depth cuts that keep the whole
+# script within 1200 s on the slower cards once phase 18 joined it
+SHORT_Z_END = 15.0
+# MINIMIZE_MEMORY stays on in the headline phases, as in every earlier run of
+# them, so that their numbers compare from one version to the next; bench.py
+# (and bench_torch.py's full768) turn it on only at DIM >= 4 HII_DIM
 HEADLINE_BOX = dict(HII_DIM=256, DIM=768, BOX_LEN=384.0, Z_HEAT_MAX=35.0, ZPRIME_STEP_FACTOR=1.02,
                     MINIMIZE_MEMORY=True)
 
 
 def _headline_inputs():
-    """The repo's headline lightcone (bench.py:73-91): 256^3 at 1.5 Mpc cells
-    with a 768^3 hires grid, E-INTEGRAL sources, USE_TS_FLUCT, inhomogeneous
-    recombinations, 92 nodes from z=35.37 to z=5."""
+    """The repo's headline lightcone, bench.py's physics (bench.py:73-91)
+    with MINIMIZE_MEMORY on: 256^3 at 1.5 Mpc cells with a 768^3 hires grid,
+    E-INTEGRAL sources, USE_TS_FLUCT, inhomogeneous recombinations, 92 nodes
+    from z=35.37 to z=5."""
     import py21cmfast_torch as p21
 
     return p21.InputParameters(random_seed=HEADLINE_SEED).evolve_input_structs(
@@ -1842,23 +1865,23 @@ def _headline_inputs():
 def _minihalo_headline_inputs():
     """The Munoz21 template (minihalos, LW feedback, v_cb FLUCTS, USE_TS_FLUCT,
     inhomogeneous recombinations, SHARP-K, R_BUBBLE_MAX=50) at the headline's
-    box and node ladder, down to CUT_Z_END."""
+    box and node ladder, down to SHORT_Z_END."""
     import py21cmfast_torch as p21
 
     return p21.InputParameters.from_template(
         MINIHALO_TEMPLATE, random_seed=HEADLINE_SEED
-    ).evolve_input_structs(**HEADLINE_BOX).with_logspaced_redshifts(CUT_Z_END)
+    ).evolve_input_structs(**HEADLINE_BOX).with_logspaced_redshifts(SHORT_Z_END)
 
 
 def _fixed_halos_headline_inputs():
     """The fixed-halos template (L-INTEGRAL, USE_EXP_FILTER, CELL_RECOMB,
     USE_TS_FLUCT, inhomogeneous recombinations, R_BUBBLE_MAX=50) at the
-    headline's box and node ladder, down to CUT_Z_END."""
+    headline's box and node ladder, down to SHORT_Z_END."""
     import py21cmfast_torch as p21
 
     return p21.InputParameters.from_template(
         FIXED_HALOS_TEMPLATE, random_seed=HEADLINE_SEED
-    ).evolve_input_structs(**HEADLINE_BOX).with_logspaced_redshifts(CUT_Z_END)
+    ).evolve_input_structs(**HEADLINE_BOX).with_logspaced_redshifts(SHORT_Z_END)
 
 
 def _moved(struct, device):
@@ -2130,7 +2153,7 @@ def headline_phase(kernels, headline):
 def minihalo_headline_phase(kernels):
     """Phase 10: the Munoz21 lightcone at the headline's box and ladder.  Its
     ICs (with the v_cb box) are computed and timed first, then the v_cb box
-    alone, warm; the stages of the nodes nearest z=8 and z=15."""
+    alone, warm; the stages of its last node (SHORT_Z_END)."""
     import torch
 
     import py21cmfast_torch as p21
@@ -2157,13 +2180,13 @@ def minihalo_headline_phase(kernels):
           f"{v.max().item():.4f}")
     if tuple(v.shape) != so.lowres_shape or not bool(torch.isfinite(v).all()) or not v.min().item() >= 0:
         raise AssertionError("the Munoz21 v_cb box is malformed")
-    lightcone_phase(kernels, inputs, ics, ics_s, "munoz21", "minihalo_lightcone", (8.0, 15.0))
+    lightcone_phase(kernels, inputs, ics, ics_s, "munoz21", "minihalo_lightcone", (SHORT_Z_END,))
 
 
 def fixed_halos_headline_phase(kernels):
     """Phase 11: the fixed-halos lightcone at the headline's box and ladder,
-    from its ICs computed and timed first; the stages of the node nearest
-    z=8."""
+    from its ICs computed and timed first; the stages of its last node
+    (SHORT_Z_END)."""
     import torch
 
     import py21cmfast_torch as p21
@@ -2173,7 +2196,7 @@ def fixed_halos_headline_phase(kernels):
         raise AssertionError(f"{FIXED_HALOS_TEMPLATE} does not use L-INTEGRAL sources")
     ics, ics_s = _sync_time(lambda: p21.compute_initial_conditions(inputs))
     torch.cuda.empty_cache()
-    lightcone_phase(kernels, inputs, ics, ics_s, "fixed-halos", "fixed_halos_lightcone", (8.0,))
+    lightcone_phase(kernels, inputs, ics, ics_s, "fixed-halos", "fixed_halos_lightcone", (SHORT_Z_END,))
 
 
 # phase 12: the latest-discrete template at its 1.5 Mpc cell and DIM/HII_DIM = 3
@@ -2382,11 +2405,12 @@ def photoncons_headline_phase(kernels, headline, base):
     """Phase 13: the headline lightcone under Z-PHOTONCONS, from the ICs
     phase 3 computed, launch counts zeroed just before and read just after:
     one deposit launch a node and one a calibration step.  The headline's
-    box and ladder are cut to CUT_Z_END (72 of its 92 nodes, the slowest 20
-    dropped), which keeps the script within its time since phase 16 joined
-    it.  The calibration (its coevals, their z range and wall, the analytic
-    history beside it), then <xH> and <Tb> at z=8 beside phase 9's (`base`)
-    at its node nearest z=8, from the same seed and ICs."""
+    box and ladder are cut to SHORT_Z_END (42 of its 92 nodes, the slowest
+    50 dropped), which keeps the script within its time since phases 16 and
+    18 joined it.  The calibration (its coevals, their z range and wall, the
+    analytic history beside it), then <xH> and <Tb> at SHORT_Z_END beside
+    phase 9's (`base`) at its node nearest SHORT_Z_END, from the same seed
+    and ICs."""
     import torch
 
     from py21cmfast_torch.drivers import coeval
@@ -2395,7 +2419,7 @@ def photoncons_headline_phase(kernels, headline, base):
 
     inputs, ics, _ = headline
     inputs = inputs.evolve_input_structs(PHOTON_CONS_TYPE="Z-PHOTONCONS").with_logspaced_redshifts(
-        CUT_Z_END)
+        SHORT_Z_END)
     setup, calibrate = coeval.setup_photon_cons, photoncons.calibrate_photon_cons
     rec = {}
 
@@ -2427,19 +2451,20 @@ def photoncons_headline_phase(kernels, headline, base):
           f"{z_cal[-1]:.3f} in {rec['calibration']:.2f} s, the analytic history and deltaz the "
           f"rest; then median {np.median(later):.4f} s a node (spread {later.min():.4f} - "
           f"{later.max():.4f}); peak memory {run['peak']:.3f} GiB")
-    zi, j = run["nodes"][-1], int(np.argmin(np.abs(np.asarray(base["nodes"]) - CUT_Z_END)))
+    zi, j = run["nodes"][-1], int(np.argmin(np.abs(np.asarray(base["nodes"]) - SHORT_Z_END)))
     print(f"[z-photoncons] {len(run['nodes'])} nodes to z={zi:.4f} (computed at "
           f"z={state.adjusted_redshift(zi):.4f}): <xH> {run['xh'][-1]:.6f}, <Tb> {run['tb'][-1]:.5f} "
           f"mK; without the correction (phase 9, z={base['nodes'][j]:.4f}) <xH> "
           f"{base['xh'][j]:.6f}, <Tb> {base['tb'][j]:.5f} mK")
-    if not (state.adjusted_redshift(8.0) < 8.0 and zi == CUT_Z_END):
+    if not (state.adjusted_redshift(8.0) < 8.0 and zi == SHORT_Z_END):
         raise AssertionError("Z-PHOTONCONS shifted no node of the headline lightcone")
     torch.cuda.empty_cache()
 
 
-# phase 16: the command line on the headline's settings (bench.py:73-91),
-# its ladder cut to z=10 (61 nodes)
-CLI_Z_END = 10.0
+# phase 16: the command line on the headline's settings (bench.py's physics,
+# bench.py:73-91, with MINIMIZE_MEMORY on), its ladder cut to SHORT_Z_END
+CLI_Z_END = SHORT_Z_END
+CLI_NODES = 42
 CLI_ARGS = ["run", "lightcone", "--seed", str(HEADLINE_SEED), "--min-z", str(CLI_Z_END),
             "--max-z", "35"] + [a for kv in (
                 "HII_DIM=256", "DIM=768", "BOX_LEN=384", "SOURCE_MODEL=E-INTEGRAL",
@@ -2477,7 +2502,7 @@ def cli_phase(kernels, base):
     `python -m py21cmfast_torch template avail` and `run params` in
     subprocesses of their own, run together (this machine has no h5py and no matplotlib,
     which the package imports only where a command needs them); then
-    `cli.main` runs the headline lightcone to z=10 in this process, launch
+    `cli.main` runs the headline lightcone to CLI_Z_END in this process, launch
     counts zeroed just before and read just after (one deposit launch a
     node); then on phase 9's cone (`base`): the power spectrum of its z~8
     chunk on the card against the CPU, and the Thomson optical depth of its
@@ -2531,8 +2556,9 @@ def cli_phase(kernels, base):
             raise AssertionError(f"the command line's lightcone never launched {k['name']}")
     lo, hi = (float(v) for v in line.split("Tb range [")[1].split("]")[0].split(","))
     bt = lc.brightness_temp
-    if not (len(nodes) == 61 and launches["cic_deposit_swept"] == len(nodes)):
-        raise AssertionError(f"expected 61 nodes and as many deposit launches: {len(nodes)}, {launches}")
+    if not (len(nodes) == CLI_NODES and launches["cic_deposit_swept"] == len(nodes)):
+        raise AssertionError(f"expected {CLI_NODES} nodes and as many deposit launches: "
+                             f"{len(nodes)}, {launches}")
     if not (line.startswith("lightcone: shape=(256, 256, ") and np.isfinite([lo, hi]).all() and lo < hi
             and bt.is_cuda and bool(torch.isfinite(bt).all())):
         raise AssertionError(f"the command line's lightcone is not a finite 256^2 cone: {line}")
@@ -3416,6 +3442,88 @@ def sharded_phase(kernels):
           f"by sharded path {paths}")
 
 
+# phase 18: bench_torch.py's faithful segment (bench.py's full1024), the
+# reference's own DIM = 4 HII_DIM ratio on the headline's lowres grid
+FAITHFUL_DIM = 1024
+# its lightcone's ladder, cut in depth to z=8 (72 of bench.py's 92 nodes)
+FAITHFUL_LADDER = (8.0, 35.0, 1.02)
+# hires x-rows a slab of the plain deposit at 1024^3 (~13 GB of positions,
+# corner indices and fractions; the whole grid's would be ~100 GiB)
+FAITHFUL_PLAIN_ROWS = 128
+
+
+def faithful_phase(kernels):
+    """Phase 18: the 1024^3 ICs (first call, peak memory), the ratio-4
+    kernel against its plain version (in x-slabs) on the perturb's own z=8
+    inputs at 1024^3 -> 256^3 with phase 3's timings and bound, then
+    bench_torch.run_full_lightcone(256, 1024) down FAITHFUL_LADDER with the
+    launch counts zeroed just before and read just after: every node, one
+    deposit launch a node, a fully written finite cone, the peak memory.
+    Returns the kernels line's 1024^3 -> 256^3 row."""
+    import torch
+
+    import bench_torch
+    from py21cmfast_torch.models import ics as ics_module
+    from py21cmfast_torch.ops import deposit
+
+    inputs = bench_torch._headline_inputs(256, FAITHFUL_DIM, HEADLINE_SEED, *FAITHFUL_LADDER)
+    so = inputs.simulation_options
+    if not inputs.matter_options.MINIMIZE_MEMORY:
+        raise AssertionError("the faithful segment runs with MINIMIZE_MEMORY on (bench.py's rule)")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ics, ics_s = _sync_time(lambda: ics_module.compute_initial_conditions(inputs))
+    print(f"[faithful] ICs at {so.hires_shape} -> {so.lowres_shape}: {ics_s:.3f} s (first call, "
+          f"synchronised), peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    d, d_init, ratio = _main_path_deposit_inputs(inputs, ics, 8.0)
+    row = _time_deposit(ics.hires_density, d, d_init, ratio,
+                        f"faithful lightcone z=8 hires {so.hires_shape}", reps=10,
+                        plain_rows=FAITHFUL_PLAIN_ROWS)
+    del ics, d
+    torch.cuda.empty_cache()
+
+    lcr, written = _tracked_lightconer(inputs)
+    deposit.cic_deposit_swept.launches = 0
+    run = bench_torch.run_full_lightcone(256, FAITHFUL_DIM, HEADLINE_SEED, ladder=FAITHFUL_LADDER,
+                                         lightconer=lcr)
+    launches = deposit.cic_deposit_swept.launches
+    lc, n = run.pop("lightcone"), len(inputs.node_redshifts)
+    if run["n_nodes"] != n or launches != n:
+        raise AssertionError(f"faithful lightcone: {run['n_nodes']} nodes of {n}, {launches} "
+                             "deposit launches")
+    miss = _check_written(written, lcr, inputs, "faithful lightcone")
+    shape = (so.HII_DIM, so.HII_DIM, lcr.n_slices)
+    for q, t in lc.lightcones.items():
+        if tuple(t.shape) != shape or not t.is_cuda or not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"faithful lightcone {q}: {tuple(t.shape)} on {t.device}, or "
+                                 "not finite")
+    gxh = lc.global_quantities["neutral_fraction"]
+    if not gxh[-1] < gxh[0]:
+        raise AssertionError(f"the global xH does not fall: {gxh[0]} -> {gxh[-1]}")
+    print(f"[faithful] HII_DIM={so.HII_DIM} DIM={so.DIM} BOX_LEN={so.BOX_LEN} MINIMIZE_MEMORY, "
+          f"seed {HEADLINE_SEED}: {n} nodes in {run['total_s']:.2f} s with the ICs "
+          f"({run['t_ics_s']:.3f} s) and the finalization ({run['finalize_s']:.3f} s); median "
+          f"{run['node_median_s']:.4f} s a node (min {run['node_min_s']:.4f}, p90 "
+          f"{run['node_p90_s']:.4f}, max {run['node_max_s']:.4f}); {launches} deposit launches; "
+          f"peak memory {run['peak_gib']:.3f} GiB; cone {shape} of {sorted(lc.lightcones)}, "
+          f"{miss} boundary slice(s) unwritten, finite; global xH {gxh[0]:.6f} -> {gxh[-1]:.6f}")
+    del lc
+    torch.cuda.empty_cache()
+    for k in kernels:
+        k["launches_by_path"]["faithful_lightcone"] = launches
+        k["launches"] = sum(k["launches_by_path"].values())
+    return {
+        "name": "cic_deposit_swept",
+        "shape": "1024^3->256^3",
+        "route": "cuda",
+        "source": "py21cmfast_torch/csrc/cic_deposit.cu",
+        "replaces": "py21cmfast_tpu/ops/pallas_deposit.py:101",
+        "launches": launches,
+        **row,
+        "library_ms": None,  # no single PyTorch call computes a CIC deposit
+    }
+
+
 def main():
     import torch
 
@@ -3424,6 +3532,10 @@ def main():
     import py21cmfast_torch  # noqa: F401  (fails outside a checkout of the repository)
 
     t0 = time.perf_counter()
+
+    def done(phase):
+        print(f"[runner] {phase} done at {time.perf_counter() - t0:.1f} s", flush=True)
+
     card_info()
     check_host_memory()
     cpu_global = start_global_on_cpu()
@@ -3431,6 +3543,7 @@ def main():
         build_kernels()
         entry, headline = kernel_phase()
         kernels = [entry]
+        done("phases 1-3")
         dens_swept = small_coeval_phase()
         perturb_paths_phase(dens_swept)
         evolving_small_phase()
@@ -3439,26 +3552,40 @@ def main():
         fixed_halos_small_phase()
         discrete_small_phase()
         slice_small_phase()
+        done("phase 4")
         main_path_phase(kernels)
         stage_phase()
         scroll_stage_phase(*scroll_phase(kernels))
+        done("phases 5-8")
         base = headline_phase(kernels, headline)
+        done("phase 9")
         photoncons_headline_phase(kernels, headline, base)
+        done("phase 13")
         del headline
         torch.cuda.empty_cache()
         cli_phase(kernels, base)
+        done("phase 16")
         del base
         torch.cuda.empty_cache()
         minihalo_headline_phase(kernels)
+        done("phase 10")
         torch.cuda.empty_cache()
         fixed_halos_headline_phase(kernels)
+        done("phase 11")
         torch.cuda.empty_cache()
         discrete_headline_phase(kernels)
+        done("phase 12")
         torch.cuda.empty_cache()
         samplers_headline_phase(kernels)
+        done("phase 14")
         global_phase(cpu_global)
+        done("phase 15")
         torch.cuda.empty_cache()
         sharded_phase(kernels)
+        done("phase 17")
+        torch.cuda.empty_cache()
+        kernels.append(faithful_phase(kernels))
+        done("phase 18")
     finally:
         if cpu_global[0].is_alive():
             cpu_global[0].terminate()

@@ -54,25 +54,34 @@ def _channel_axis(n_hi: int, n_lo: int, ratio: int, device):
     return c, rho
 
 
-def cic_deposit_swept_plain(hires, dx, dy, dz, d_init, ratio):
-    """Plain PyTorch version: every sub-particle's position and mass on the
-    whole hires grid, then the per-particle CIC scatter."""
+def cic_deposit_swept_plain(hires, dx, dy, dz, d_init, ratio, x_rows=None):
+    """Plain PyTorch version: every sub-particle's position and mass, then
+    the per-particle CIC scatter.  With `x_rows` the hires grid goes through
+    in x-slabs of that many rows, into one accumulator: the same arithmetic
+    in bounded memory (the whole 1024^3 grid's corner indices and fractions
+    take ~100 GiB)."""
     lo_shape = _check(hires, dx, dy, dz, ratio)
     dev = hires.device
     (cx, rx), (cy, ry), (cz, rz) = (
         _channel_axis(hires.shape[a], lo_shape[a], ratio, dev) for a in range(3)
     )
 
-    def at_channel(d):
-        return d.index_select(0, cx).index_select(1, cy).index_select(2, cz)
+    def at_channel(d, rows):
+        return d.index_select(0, cx[rows]).index_select(1, cy).index_select(2, cz)
 
     fx, fy, fz = (c.to(torch.float32) for c in (cx, cy, cz))
-    px = fx[:, None, None] + at_channel(dx) + rx[:, None, None]
-    py = fy[None, :, None] + at_channel(dy) + ry[None, :, None]
-    pz = fz[None, None, :] + at_channel(dz) + rz[None, None, :]
-    mass = 1.0 + hires * d_init
     acc = torch.zeros(lo_shape[0] * lo_shape[1] * lo_shape[2], dtype=torch.float32, device=dev)
-    return cic.cic_scatter_flat(acc, px, py, pz, mass, lo_shape).reshape(lo_shape)
+    n_x = hires.shape[0]
+    step = n_x if x_rows is None else int(x_rows)
+    for x0 in range(0, n_x, step):
+        rows = slice(x0, x0 + step)
+        px = fx[rows, None, None] + at_channel(dx, rows) + rx[rows, None, None]
+        py = fy[None, :, None] + at_channel(dy, rows) + ry[None, :, None]
+        pz = fz[None, None, :] + at_channel(dz, rows) + rz[None, None, :]
+        mass = 1.0 + hires[rows] * d_init
+        cic.cic_scatter_flat(acc, px, py, pz, mass, lo_shape)
+        del px, py, pz, mass
+    return acc.reshape(lo_shape)
 
 
 def cic_deposit_swept(hires, dx, dy, dz, d_init, ratio):

@@ -111,6 +111,27 @@ def test_plain_deposit_ratio_one_on_hires_grid_matches_scatter():
     np.testing.assert_allclose(got, np.asarray(direct).reshape(nh), rtol=0, atol=ATOL)
 
 
+@pytest.mark.parametrize("R", [1, 2, 3, 4])
+def test_plain_deposit_in_x_slabs_matches_the_whole_grid(R):
+    """The plain version taken in hires x-slabs (as chip_smoke.py runs it at
+    1024^3 -> 256^3, where the whole grid does not fit the card) against the
+    whole grid at once, slabs that do not divide the rows included: the same
+    per-particle arithmetic, the float32 sums of a cell in another order, so
+    within 1e-5 of the cell's mass (of the mean mass where the cell holds
+    less, as chip_smoke.check_deposit), and the same total mass."""
+    hires, psi = _case(R, nl=8)
+    t = [torch.from_numpy(np.ascontiguousarray(a)) for a in (hires, *(p * 3.0 for p in psi))]
+    whole = tdep.cic_deposit_swept_plain(*t, D_INIT, R)
+    for rows in (1, 3, 8 * R - 1, 8 * R):
+        slabs = tdep.cic_deposit_swept_plain(*t, D_INIT, R, x_rows=rows)
+        rel = (slabs - whole).abs() / torch.clamp_min(whole, whole.mean().item())
+        assert rel.max().item() <= 1e-5, (rows, rel.max().item())
+        np.testing.assert_allclose(slabs.double().sum().item(), whole.double().sum().item(),
+                                   rtol=1e-6)
+    np.testing.assert_array_equal(
+        tdep.cic_deposit_swept_plain(*t, D_INIT, R, x_rows=8 * R).numpy(), whole.numpy())
+
+
 def test_cpu_call_does_not_count_a_launch():
     hires, psi = _case(2, nl=4)
     tdep.cic_deposit_swept.launches = 0

@@ -278,7 +278,8 @@ def _imported_modules(path):
 
 
 def test_port_and_chip_smoke_import_no_jax():
-    files = sorted((REPO / "py21cmfast_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = sorted((REPO / "py21cmfast_torch").rglob("*.py")) + [
+        REPO / "chip_smoke.py", REPO / "bench_torch.py"]
     assert len(files) > 20
     bad = [
         (str(f.relative_to(REPO)), m) for f in files for m in _imported_modules(f)
