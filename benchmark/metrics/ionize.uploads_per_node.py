@@ -1,0 +1,38 @@
+"""ionize.uploads_per_node: tensors made from host data a node inside the
+ionization step, the program's counter `h2d.uploads` (`_device.to_device`)
+under the stage `ionize`. The window's cones are the last `record["cones"]`
+runs of the program's recorder (`py21cmfast_torch.tracing.runs()`): the
+warm-up cone of set-up is the run before them, and the reference imports
+nothing of the program. None unless the node counts of those runs add up to
+`record["nodes"]`, or where the program has no recorder."""
+
+UNIT = "uploads/node"
+LAYER = "ionization"
+MOVES = "lightcone_s"
+COUNTER = "h2d.uploads"
+STAGE = "ionize"
+
+
+def _books(record):
+    """Every book of the window's cones (each run's own and its nodes'), or
+    None unless the program has a recorder and its last `record["cones"]`
+    runs hold `record["nodes"]` nodes."""
+    try:
+        from py21cmfast_torch import tracing
+    except ImportError:
+        return None
+    cones = record.get("cones") or 0
+    runs = tracing.runs(last=cones) if cones else []
+    if len(runs) != cones or not cones or \
+            sum(len(r["nodes"]) for r in runs) != record.get("nodes"):
+        return None
+    return [b for r in runs for b in [r] + r["nodes"]]
+
+
+def read(record):
+    books = _books(record)
+    found = [b["counters"][COUNTER][STAGE] for b in books or ()
+             if STAGE in b["counters"].get(COUNTER, {})]
+    if not found:
+        return None
+    return sum(found) / record["nodes"]

@@ -172,6 +172,17 @@ PEAK_FP32_FLOPS = 67e12
 DEPOSIT_FLOPS_PER_PARTICLE = 44
 
 
+def _recorded(kind, name):
+    """The process's total of a recorder span's seconds (`kind` "spans") or
+    of a counter over its stages (`kind` "counters"), py21cmfast_torch.tracing."""
+    from py21cmfast_torch import tracing
+
+    booked = tracing.totals()[kind]
+    if kind == "spans":
+        return booked[name][1] if name in booked else 0.0
+    return sum(booked.get(name, {}).values())
+
+
 def _sync_time(fn):
     import torch
 
@@ -797,8 +808,7 @@ def scroll_phase(kernels):
         ts_host.append(time.perf_counter() - t0)
         return out
 
-    stats = spintemp._SFRD_PREFETCH["stats"]
-    stats.update(build_s=0.0, wait_s=0.0)
+    prefetch0 = {k: _recorded("spans", k) for k in ("ts.sfrd_build", "ts.sfrd_wait")}
     torch.cuda.reset_peak_memory_stats()
     for w in wrappers.values():
         w.launches = 0
@@ -847,7 +857,8 @@ def scroll_phase(kernels):
 
     # seconds[0] holds the ICs and everything built at first use
     later = np.array(seconds[1:])
-    hidden = stats["build_s"] - stats["wait_s"]
+    stats = {k[3:] + "_s": _recorded("spans", k) - v for k, v in prefetch0.items()}
+    hidden = stats["sfrd_build_s"] - stats["sfrd_wait_s"]
     ts_total = float(np.sum(ts_host))
     print(f"[scroll] {len(nodes)} nodes in {total:.2f} s on the card: first node (with the ICs) "
           f"{seconds[0]:.3f} s, then median {np.median(later):.4f} s a node "
@@ -855,7 +866,7 @@ def scroll_phase(kernels):
           f"{peak:.3f} GiB")
     print(f"[scroll] Ts step, host seconds inside the call: total {ts_total:.2f} s, median "
           f"{np.median(ts_host):.4f} s a node; the prefetch thread built SFRD tables for "
-          f"{stats['build_s']:.2f} s and nodes waited {stats['wait_s']:.2f} s for them: "
+          f"{stats['sfrd_build_s']:.2f} s and nodes waited {stats['sfrd_wait_s']:.2f} s for them: "
           f"{hidden:.2f} s hidden, {100 * hidden / (ts_total + hidden):.1f}% of the Ts wall "
           f"there would be without it")
     for i in sorted({0, *sample_at, len(nodes) // 4, 3 * len(nodes) // 4}):
@@ -2984,12 +2995,15 @@ def _timed_parts(walls):
 
 
 def _rank_report(mesh, walls, wall, launches):
+    """A rank's report; its collectives are the recorder's totals (a rank's
+    process runs one job)."""
     import torch
 
     return dict(rank=mesh.rank, wall=wall, parts=dict(walls), launches=launches,
-                collective_s=mesh.stats["seconds"], collective_calls=mesh.stats["calls"],
-                collective_gib=mesh.stats["bytes"] / 2**30,
-                host_copy_gib=mesh.stats["host_bytes"] / 2**30,
+                collective_s=_recorded("spans", "mesh.collective"),
+                collective_calls=_recorded("counters", "mesh.calls"),
+                collective_gib=_recorded("counters", "mesh.bytes") / 2**30,
+                host_copy_gib=_recorded("counters", "mesh.host_bytes") / 2**30,
                 peak_gib=torch.cuda.max_memory_allocated(mesh.device) / 2**30)
 
 
@@ -3405,10 +3419,12 @@ def sharded_phase(kernels):
     try:
         mesh = make_mesh(1)
         deposit.cic_deposit_swept.launches = 0
+        calls0 = _recorded("counters", "mesh.calls")
         (out,), wall = _sync_time(lambda: run_sharded_coeval(inputs, [8.0], mesh=mesh))
         launches = deposit.cic_deposit_swept.launches
         print(f"[sharded-simple] run_sharded_coeval({MAIN_TEMPLATE}, [8.0]) over {mesh}: "
-              f"{wall:.3f} s (first call), {mesh.stats['calls']} collectives, deposit kernel "
+              f"{wall:.3f} s (first call), {_recorded('counters', 'mesh.calls') - calls0} "
+              f"collectives, deposit kernel "
               f"launches {launches}")
         got = {k: _host(v) for k, v in _node_fields(out).items()}
         del out

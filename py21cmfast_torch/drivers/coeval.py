@@ -21,6 +21,10 @@ node's fields are checked, and a later run with the same inputs resumes:
 the leading nodes whose chain-coupling boxes are all cached (`RunCache`)
 are read back onto the run's device instead of computed, yielded where
 requested, and handed down the chain exactly as computed ones are.
+
+Each computed node is a node of the run's recorder (`tracing`): the spans
+`node`, `perturb`, `ts`, `ionize`, `tb` and `scroll.validate` (the NaN
+sweep) are booked there.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ import dataclasses
 
 import numpy as np
 
+from .. import tracing
 from .._device import resolve_device
 from ..exceptions import begin_validate_snapshot, check_nonfinite
 from ..inputs import InputParameters
@@ -116,6 +121,7 @@ def _required_redshifts(inputs: InputParameters, out_redshifts):
     return sorted(zs, reverse=True)
 
 
+@tracing.traced_run
 def generate_coeval(
     inputs: InputParameters,
     out_redshifts=(),
@@ -202,6 +208,7 @@ def generate_coeval(
     for i, z in enumerate(all_z):
         wanted = (not out_redshifts) or any(abs(z - oz) < 1e-8 for oz in out_redshifts)
         if z in resumed:
+            tracing.end_node()
             # read the node's boxes back instead of computing them
             pf = cache.read(PerturbedField, inputs, z, device=dev)
             ion = cache.read(IonizedBox, inputs, z, device=dev)
@@ -226,67 +233,74 @@ def generate_coeval(
             del ion, pf, ts, halobox
             continue
 
-        pf = perturb.perturb_field(z, inputs, initial_conditions, device=dev)
+        tracing.begin_node(i, z)
+        with tracing.span("node"):
+            with tracing.span("perturb"):
+                pf = perturb.perturb_field(z, inputs, initial_conditions, device=dev)
 
-        halobox = None
-        if sampler:
-            pt_halos = halos_module.perturb_halo_catalog(
-                z, inputs, initial_conditions, catalogs.pop(z).to(dev), device=dev)
-            halobox = halobox_module.compute_halo_grid(
-                z, inputs, pt_halos, previous_spin_temp=ts_state, previous_ionized_box=prev_ion,
-                lagrangian_delta=initial_conditions.lowres_density,
-                lowres_vcb=initial_conditions.lowres_vcb, ics=initial_conditions, device=dev,
-            )
-            del pt_halos
-        elif lagrangian:
-            mt_a_grid = mt_m_grid = None
-            if ao.USE_MINI_HALOS:
-                mt_a_grid, mt_m_grid = halobox_module._mcrit_grids(
-                    z, inputs, set_scaling_constants(z, inputs), ts_state, prev_ion,
-                    initial_conditions.lowres_vcb, device=dev,
+            halobox = None
+            if sampler:
+                pt_halos = halos_module.perturb_halo_catalog(
+                    z, inputs, initial_conditions, catalogs.pop(z).to(dev), device=dev)
+                halobox = halobox_module.compute_halo_grid(
+                    z, inputs, pt_halos, previous_spin_temp=ts_state, previous_ionized_box=prev_ion,
+                    lagrangian_delta=initial_conditions.lowres_density,
+                    lowres_vcb=initial_conditions.lowres_vcb, ics=initial_conditions, device=dev,
                 )
-            halobox = halobox_module.compute_fixed_halo_grid(
-                z, inputs, initial_conditions.lowres_density,
-                mt_a_grid=mt_a_grid, mt_m_grid=mt_m_grid, ics=initial_conditions, device=dev,
-            )
-            del mt_a_grid, mt_m_grid
-
-        ts = None
-        if ao.USE_TS_FLUCT:
-            source_box = None
-            if halobox is not None:
-                halobox_nodes.append((z, _slim_history_box(halobox)))
-                if ts_state is not None and z < inputs.simulation_options.Z_HEAT_MAX:
-                    source_box = xray_source.compute_xray_source_field(
-                        z, inputs, halobox_nodes, previous_ionized_box=prev_ion, device=dev
+                del pt_halos
+            elif lagrangian:
+                mt_a_grid = mt_m_grid = None
+                if ao.USE_MINI_HALOS:
+                    mt_a_grid, mt_m_grid = halobox_module._mcrit_grids(
+                        z, inputs, set_scaling_constants(z, inputs), ts_state, prev_ion,
+                        initial_conditions.lowres_vcb, device=dev,
                     )
-            ts, ts_state = spintemp.compute_spin_temperature(
-                z, inputs, pf, prev_state=ts_state, prev_redshift=prev_z,
-                initial_conditions=initial_conditions, source_box=source_box,
-                previous_ionized_box=prev_ion, device=dev,
-            )
-            del source_box
-            # overlap the next node's host-side SFRD tables with this node's
-            # device work (worker thread; see spintemp.prefetch_sfrd_tables)
-            if i + 1 < len(all_z):
-                spintemp.prefetch_sfrd_tables(all_z[i + 1], inputs)
+                halobox = halobox_module.compute_fixed_halo_grid(
+                    z, inputs, initial_conditions.lowres_density,
+                    mt_a_grid=mt_a_grid, mt_m_grid=mt_m_grid, ics=initial_conditions, device=dev,
+                )
+                del mt_a_grid, mt_m_grid
 
-        ion = ionization.compute_ionization_field(
-            z, inputs, pf, previous_ionized_box=prev_ion, spin_temp=ts,
-            prev_redshift=prev_z, previous_perturbed_field=prev_pf,
-            vcb_box=initial_conditions.lowres_vcb, halobox=halobox,
-            photoncons_state=photoncons_state, device=dev,
-        )
-        # the previous node's Nion stacks (2 x n_R grids with minihalos) are
-        # read: release the scroll's hold on them now
-        prev_ion = prev_pf = None
-        tb = brightness_temperature(inputs, ion, pf, spin_temp=ts, device=dev)
-        # lag-1 validation, as the JAX package's scroll: check the previous
-        # node's sweep (its copy is long done), start this node's unwaited
-        check_nonfinite(pending_validation)
-        pending_validation = begin_validate_snapshot(z, pf, halobox, ts, ion, tb)
-        for box in (pf, halobox, ts, ion, tb):
-            cache_write(box, z)
+            ts = None
+            if ao.USE_TS_FLUCT:
+                source_box = None
+                if halobox is not None:
+                    halobox_nodes.append((z, _slim_history_box(halobox)))
+                    if ts_state is not None and z < inputs.simulation_options.Z_HEAT_MAX:
+                        source_box = xray_source.compute_xray_source_field(
+                            z, inputs, halobox_nodes, previous_ionized_box=prev_ion, device=dev
+                        )
+                with tracing.span("ts"):
+                    ts, ts_state = spintemp.compute_spin_temperature(
+                        z, inputs, pf, prev_state=ts_state, prev_redshift=prev_z,
+                        initial_conditions=initial_conditions, source_box=source_box,
+                        previous_ionized_box=prev_ion, device=dev,
+                    )
+                del source_box
+                # overlap the next node's host-side SFRD tables with this node's
+                # device work (worker thread; see spintemp.prefetch_sfrd_tables)
+                if i + 1 < len(all_z):
+                    spintemp.prefetch_sfrd_tables(all_z[i + 1], inputs)
+
+            with tracing.span("ionize"):
+                ion = ionization.compute_ionization_field(
+                    z, inputs, pf, previous_ionized_box=prev_ion, spin_temp=ts,
+                    prev_redshift=prev_z, previous_perturbed_field=prev_pf,
+                    vcb_box=initial_conditions.lowres_vcb, halobox=halobox,
+                    photoncons_state=photoncons_state, device=dev,
+                )
+            # the previous node's Nion stacks (2 x n_R grids with minihalos) are
+            # read: release the scroll's hold on them now
+            prev_ion = prev_pf = None
+            with tracing.span("tb"):
+                tb = brightness_temperature(inputs, ion, pf, spin_temp=ts, device=dev)
+            # lag-1 validation, as the JAX package's scroll: check the previous
+            # node's sweep (its copy is long done), start this node's unwaited
+            with tracing.span("scroll.validate"):
+                check_nonfinite(pending_validation)
+                pending_validation = begin_validate_snapshot(z, pf, halobox, ts, ion, tb)
+            for box in (pf, halobox, ts, ion, tb):
+                cache_write(box, z)
 
         if wanted:
             yield Coeval(
@@ -307,7 +321,9 @@ def generate_coeval(
         del ion, pf, ts, tb, halobox
 
     # the last node's sweep has no successor to check it
-    check_nonfinite(pending_validation)
+    tracing.end_node()
+    with tracing.span("scroll.validate"):
+        check_nonfinite(pending_validation)
 
 
 def run_coeval(

@@ -9,6 +9,10 @@ apply the velocity-gradient correction and RSDs along the line of sight on
 the same device.  A checkpoint file (HDF5, the JAX package's layout) lets an
 interrupted run restart after its last completed node, and an output cache
 handed to the coeval scroll lets it skip the nodes already computed.
+
+A call is one run of the recorder (`tracing`): its scroll's nodes, with the
+spans `lc.slices` (a node's slices, `lc.schedule` inside) booked to each, and
+`lc.finalize` (dvdr and the RSDs) booked to the run.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ import numpy as np
 import torch
 
 from .. import rsds as rsds_module
+from .. import tracing
 from .._device import resolve_device
 from ..inputs import InputParameters
 from ..lightconers import Lightconer, RectilinearLightconer
@@ -116,6 +121,7 @@ def _global_quantities(gq_host, means, names):
             for j, q in enumerate(names)}
 
 
+@tracing.traced_run
 def generate_lightcone(
     inputs: InputParameters,
     lightconer: Lightconer | None = None,
@@ -193,11 +199,12 @@ def generate_lightcone(
                     [lightconer.get_field(coeval, q, device=True).mean()
                      for q in global_quantities]))
             if prev_coeval is not None:
-                for q in quantities:
-                    idx, vals = lightconer.make_lightcone_slices(
-                        coeval, prev_coeval, cosmo, inputs, q)
-                    if idx is not None:
-                        lightcones[q][:, :, idx] = vals
+                with tracing.span("lc.slices"):
+                    for q in quantities:
+                        idx, vals = lightconer.make_lightcone_slices(
+                            coeval, prev_coeval, cosmo, inputs, q)
+                        if idx is not None:
+                            lightcones[q][:, :, idx] = vals
             if checkpoint_path is not None:
                 _checkpoint_save(checkpoint_path, inputs, lightcones,
                                  _global_quantities(gq_host, means, global_quantities), i_node)
@@ -211,24 +218,25 @@ def generate_lightcone(
     lc.global_quantities = _global_quantities(gq_host, means, global_quantities)
 
     # ----- finalization: dvdr correction + RSDs (lightcone.py:249-372) -----
-    lc_z = lightconer.lc_redshifts(cosmo)
-    if include_dvdr_in_tau21 and "brightness_temp" in lightcones:
-        lightcones["brightness_temp"] = rsds_module.include_dvdr_in_tau21(
-            lightcones["brightness_temp"],
-            lightcones["velocity_z"],
-            lc_z,
-            inputs,
-            periodic=False,
-            tau_21=lightcones.get("tau_21") if use_ts else None,
-        )
-    if apply_rsds and "brightness_temp" in lightcones:
-        lightcones["brightness_temp"] = rsds_module.apply_rsds(
-            lightcones["brightness_temp"],
-            lightcones["velocity_z"],
-            lc_z,
-            inputs,
-            periodic=False,
-        )
+    with tracing.span("lc.finalize"):
+        lc_z = lightconer.lc_redshifts(cosmo)
+        if include_dvdr_in_tau21 and "brightness_temp" in lightcones:
+            lightcones["brightness_temp"] = rsds_module.include_dvdr_in_tau21(
+                lightcones["brightness_temp"],
+                lightcones["velocity_z"],
+                lc_z,
+                inputs,
+                periodic=False,
+                tau_21=lightcones.get("tau_21") if use_ts else None,
+            )
+        if apply_rsds and "brightness_temp" in lightcones:
+            lightcones["brightness_temp"] = rsds_module.apply_rsds(
+                lightcones["brightness_temp"],
+                lightcones["velocity_z"],
+                lc_z,
+                inputs,
+                periodic=False,
+            )
     yield None, None, lc
 
 

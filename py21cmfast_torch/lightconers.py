@@ -14,6 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import tracing
+from ._device import to_device
 from .inputs import InputParameters
 from .ops import cic
 
@@ -133,21 +135,22 @@ class RectilinearLightconer(Lightconer):
         """(idx, vals): the cone's slice indices as a tensor and the (N, N,
         len(idx)) interpolated slices, on the coevals' device; (None, None)
         where no slice falls between the two or the field is not filled."""
-        sched = self._slice_schedule(coeval_low, coeval_high, cosmo, inputs)
+        with tracing.span("lc.schedule"):
+            sched = self._slice_schedule(coeval_low, coeval_high, cosmo, inputs)
         box_lo = self.get_field(coeval_low, quantity, device=True)
         box_hi = self.get_field(coeval_high, quantity, device=True)
         if sched is None or box_lo is None or box_hi is None:
             return None, None
         idx, pix, w = sched
         dev = box_lo.device
-        pix = torch.as_tensor(pix, dtype=torch.int64, device=dev)
-        w = torch.as_tensor(w, device=dev)
+        pix = to_device(pix, dev, torch.int64)
+        w = to_device(w, dev)
         lo = box_lo[:, :, pix]
         hi = box_hi[:, :, pix]
         vals = lo * (1 - w) + hi * w
         if self.interp_kinds.get(quantity) == "mean_max":
             vals = torch.where(lo * hi < 0, torch.maximum(lo, hi), vals)
-        return torch.as_tensor(idx, device=dev), vals
+        return to_device(idx, dev), vals
 
 
 class AngularLightconer(Lightconer):
@@ -208,9 +211,9 @@ class AngularLightconer(Lightconer):
             self.origin[None, None, :]
             + dists[:, None, None] * self.sightlines[None, :, :]
         ) / cell
-        px, py, pz = (torch.as_tensor(pos[..., a].astype(np.float32), device=dev) for a in range(3))
+        px, py, pz = (to_device(pos[..., a].astype(np.float32), dev) for a in range(3))
         v_lo = cic.cic_read(box_lo, px, py, pz).double()
         v_hi = cic.cic_read(box_hi, px, py, pz).double()
-        w = torch.as_tensor((dists - d_low) / max(d_high - d_low, 1e-30), device=dev)
+        w = to_device((dists - d_low) / max(d_high - d_low, 1e-30), dev)
         vals = v_lo * (1 - w)[:, None] + v_hi * w[:, None]  # (n_slice, npix), float64
-        return torch.as_tensor(idx, device=dev), vals.T.float()
+        return to_device(idx, dev), vals.T.float()

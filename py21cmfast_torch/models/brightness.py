@@ -9,7 +9,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .._device import resolve_device
+from .._device import resolve_device, to_device
 from ..cosmology.constants import physconst
 from ..inputs import InputParameters
 from ..outputs import BrightnessTemp, IonizedBox, PerturbedField, TsBox
@@ -55,7 +55,7 @@ def brightness_temperature(
     redshift = float(ionized_box.redshift)
 
     def scalar(v):
-        return torch.tensor(v, dtype=torch.float32, device=dev)
+        return to_device(v, dev, torch.float32)
 
     tb, tau = _tb_kernel(
         ionized_box.neutral_fraction.to(dev),

@@ -45,7 +45,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from .._device import resolve_device
+from .. import tracing
+from .._device import resolve_device, to_device
 from ..cosmology.constants import FRACT_FLOAT_ERR, TINY, physconst
 from ..cosmology.recombination import RecombinationHistory
 from ..inputs import InputParameters
@@ -272,7 +273,7 @@ def mcrit_boxes(redshift, inputs, sc, previous_ionized_box, lw_box, vcb_box, dev
         return torch.full(shape, fill, dtype=torch.float32, device=device)
 
     def f32(v):
-        return torch.tensor(float(_f32(v)), dtype=torch.float32, device=device)
+        return to_device(float(_f32(v)), device, torch.float32)
 
     return _mcrit_kernel(
         grid(previous_ionized_box, "ionisation_rate_G12", 0.0),
@@ -655,224 +656,229 @@ def compute_ionization_field(
     # the halo grids already carry fesc and the pop factors (set_ionbox_constants:172-178)
     ion_eff = 1.0 if lagrangian else ion_eff_gl
 
-    # --- global normalization (set_mean_fcoll, IonisationBox.c:468-529) -----
-    if mass_dep:
-        mean_fcoll = float(
-            hmf.nion_general(
-                sigma_table, cosmo, hmf_int, redshift, ln_m_min, ln_m_max,
-                sc.mturn_a_nofb, sc,
+    # host tables: the global normalization, the radius ladder, the per-R
+    # Nion tables and the scan's step list
+    with tracing.span("ionize.host_tables"):
+        # --- global normalization (set_mean_fcoll, IonisationBox.c:468-529) -----
+        if mass_dep:
+            mean_fcoll = float(
+                hmf.nion_general(
+                    sigma_table, cosmo, hmf_int, redshift, ln_m_min, ln_m_max,
+                    sc.mturn_a_nofb, sc,
+                )
             )
-        )
-        f_limit = float(
-            hmf.nion_general(
-                sigma_table, cosmo, hmf_int, so.Z_HEAT_MAX, ln_m_min, ln_m_max,
-                sc.mturn_a_nofb, sc,
+            f_limit = float(
+                hmf.nion_general(
+                    sigma_table, cosmo, hmf_int, so.Z_HEAT_MAX, ln_m_min, ln_m_max,
+                    sc.mturn_a_nofb, sc,
+                )
             )
-        )
-        log10_mturn_ave = np.log10(sc.mturn_a_nofb)
-    else:
-        mean_fcoll = float(
-            hmf.fcoll_general(sigma_table, cosmo, hmf_int, redshift, ln_m_min, ln_m_max)
-        )
-        f_limit = FRACT_FLOAT_ERR
-        log10_mturn_ave = np.log10(m_min)
-
-    prev_z_reion = (
-        previous_ionized_box.z_reion.to(dev)
-        if previous_ionized_box is not None
-        else torch.full(lshape, -1.0, dtype=torch.float32, device=dev)
-    )
-
-    # --- early exit: nothing ionizes (IonisationBox.c:1472-1475) ------------
-    if mean_fcoll * ion_eff_gl < HII_ROUND_ERR:
-        if spin_temp is not None:
-            xh = 1.0 - spin_temp.xray_ionised_fraction.to(dev)
+            log10_mturn_ave = np.log10(sc.mturn_a_nofb)
         else:
-            rec_hist = RecombinationHistory(cosmo)
-            xh = torch.full(
-                lshape, float(1.0 - rec_hist.x_e(redshift)), dtype=torch.float32, device=dev
+            mean_fcoll = float(
+                hmf.fcoll_general(sigma_table, cosmo, hmf_int, redshift, ln_m_min, ln_m_max)
             )
-        return IonizedBox(
-            redshift=np.float32(stored_redshift),
-            neutral_fraction=xh,
-            z_reion=prev_z_reion,
-            ionisation_rate_G12=torch.zeros(lshape, dtype=torch.float32, device=dev),
-            mean_f_coll=np.float32(mean_fcoll),
-            mean_f_coll_MINI=np.float32(0.0),
-            log10_Mturnover_ave=np.float32(log10_mturn_ave),
-            log10_Mturnover_MINI_ave=np.float32(0.0),
+            f_limit = FRACT_FLOAT_ERR
+            log10_mturn_ave = np.log10(m_min)
+
+        prev_z_reion = (
+            previous_ionized_box.z_reion.to(dev)
+            if previous_ionized_box is not None
+            else torch.full(lshape, -1.0, dtype=torch.float32, device=dev)
         )
 
-    # --- minihalo turnover-mass grids (calculate_mcrit_boxes:403) -----------
-    use_minihalos = ao.USE_MINI_HALOS and mass_dep and not lagrangian
-    ion_eff_mini = sc.pop3_ion * sc.fstar_7 * sc.fesc_7
-    mean_fcoll_mini = f_limit_mini = 0.0
-    log10_mturn_m_ave = 0.0
-    prev_mfc = prev_mfc_mini = 0.0
-    if use_minihalos:
-        mturn_a_box, mturn_m_box = mcrit_boxes(
-            redshift, inputs, sc, previous_ionized_box, spin_temp, vcb_box, dev, lshape)
-        # the stage's one host sync: the float32 box means, as the JAX
-        # package takes them
-        log10_mturn_ave, log10_mturn_m_ave = gops.means([mturn_a_box, mturn_m_box], shape)
+        # --- early exit: nothing ionizes (IonisationBox.c:1472-1475) ------------
+        if mean_fcoll * ion_eff_gl < HII_ROUND_ERR:
+            tracing.count("ionize.radii", 0)
+            if spin_temp is not None:
+                xh = 1.0 - spin_temp.xray_ionised_fraction.to(dev)
+            else:
+                rec_hist = RecombinationHistory(cosmo)
+                xh = torch.full(
+                    lshape, float(1.0 - rec_hist.x_e(redshift)), dtype=torch.float32, device=dev
+                )
+            return IonizedBox(
+                redshift=np.float32(stored_redshift),
+                neutral_fraction=xh,
+                z_reion=prev_z_reion,
+                ionisation_rate_G12=torch.zeros(lshape, dtype=torch.float32, device=dev),
+                mean_f_coll=np.float32(mean_fcoll),
+                mean_f_coll_MINI=np.float32(0.0),
+                log10_Mturnover_ave=np.float32(log10_mturn_ave),
+                log10_Mturnover_MINI_ave=np.float32(0.0),
+            )
 
-        # global normalizations at the mean turnovers
-        mt_a, mt_m = 10.0 ** log10_mturn_ave, 10.0 ** log10_mturn_m_ave
-        mean_fcoll = float(hmf.nion_general(
-            sigma_table, cosmo, hmf_int, redshift, ln_m_min, ln_m_max, mt_a, sc))
-        f_limit = float(hmf.nion_general(
-            sigma_table, cosmo, hmf_int, so.Z_HEAT_MAX, ln_m_min, ln_m_max, mt_a, sc))
-        mean_fcoll_mini = float(hmf.nion_general_mini(
-            sigma_table, cosmo, hmf_int, redshift, ln_m_min, ln_m_max, mt_m, sc))
-        f_limit_mini = float(hmf.nion_general_mini(
-            sigma_table, cosmo, hmf_int, so.Z_HEAT_MAX, ln_m_min, ln_m_max, mt_m, sc))
-
-        # trapezoidal update from the previous snapshot (set_mean_fcoll:463-529):
-        # MCG star formation follows the Mturn history, so the global Nion is
-        # carried as Nion_prev + Nion(z, Mt) - Nion(z_prev, Mt)
-        if previous_ionized_box is not None:
-            prev_mfc = float(previous_ionized_box.mean_f_coll)
-            prev_mfc_mini = float(previous_ionized_box.mean_f_coll_MINI)
-        # the previous snapshot's adjusted redshift (Z-PHOTONCONS, which the
-        # inputs refuse with USE_MINI_HALOS: kept as the JAX package has it)
-        prev_z_adj = prev_redshift
-        if photoncons_state is not None and prev_redshift is not None:
-            prev_z_adj = photoncons_state.adjusted_redshift(prev_redshift)
-        if prev_z_adj is not None and prev_mfc * ion_eff_gl > 1e-4:
-            f_prev = float(hmf.nion_general(
-                sigma_table, cosmo, hmf_int, prev_z_adj, ln_m_min, ln_m_max, mt_a, sc))
-            mean_fcoll = prev_mfc + mean_fcoll - f_prev
-        if prev_z_adj is not None and prev_mfc_mini * ion_eff_mini > 1e-4:
-            f_prev_mini = float(hmf.nion_general_mini(
-                sigma_table, cosmo, hmf_int, prev_z_adj, ln_m_min, ln_m_max, mt_m, sc))
-            mean_fcoll_mini = prev_mfc_mini + mean_fcoll_mini - f_prev_mini
-
-    track_nion = bool(
-        use_minihalos
-        and previous_ionized_box is not None
-        and previous_perturbed_field is not None
-        and prev_redshift is not None
-        and previous_ionized_box.unnormalised_nion is not None
-        and (prev_mfc * ion_eff_gl + prev_mfc_mini * ion_eff_mini) > 1e-4
-    )
-
-    ladder = setup_radii(inputs, m_min)
-    n_r = ladder.n
-    if track_nion and previous_ionized_box.unnormalised_nion.shape[0] != n_r:
-        track_nion = False  # the radius ladder changed (m_min moved): restart
-    order = np.argsort(ladder.R)[::-1]  # descending: largest R first
-    l10_mturns = np.linspace(*MTURN_BOUNDS, N_MTURN_TABLE)
-    use_cheby = False
-    cheby_coeffs, cheby_edge = np.zeros((n_r, CHEBY_DEG + 1)), np.zeros(n_r)
-    if use_minihalos:
-        d_lo, d_hi, tables, caps, tables_mini, caps_mini = _build_nion_tables_mini(
-            inputs, ladder, sigma_table, growth, m_min, sc, l10_mturns)
-    elif mass_dep and not lagrangian:
-        d_lo, d_hi, tables, caps = _build_nion_tables(
-            inputs, ladder, sigma_table, growth, m_min, sc
-        )
-        # Chebyshev fits of the per-R log-Nion tables; the gather is the
-        # fallback when a fit is poor
-        cheby_coeffs, cheby_edge, use_cheby = _fit_log_cheby(tables, caps)
-    else:
-        d_lo, d_hi = np.zeros(n_r), np.ones(n_r)
-        tables, caps = np.zeros((n_r, N_DELTA_TABLE)), np.zeros(n_r)
-
-    gamma_prefactor = (
-        (1 + redshift) ** 2
-        * physconst.cm_per_Mpc
-        * physconst.sigma_HI
-        * ap.ALPHA_UVB
-        / (ap.ALPHA_UVB + 2.75)
-        * cosmo.N_b0
-        * ion_eff
-        / 1.0e-12
-    )
-    if mass_dep and not lagrangian:
-        gamma_prefactor /= sc.t_h * sc.t_star
-    # Lagrangian: the 1/(rho_crit OMb) absorber factor is applied to the
-    # grids below, so gamma_prefactor stays as it is (IonisationBox.c:215-218)
-
-    use_recomb = ao.uses_recombination
-    rec_box = None
-    if use_recomb:
-        if previous_ionized_box is not None and (
-            previous_ionized_box.cumulative_recombinations is not None
-        ):
-            rec_box = previous_ionized_box.cumulative_recombinations.to(dev)
-        else:
-            rec_box = torch.zeros(lshape, dtype=torch.float32, device=dev)
-
-    def device_rows(a):
-        """Per-R table rows in scan order, flattened, as one float32 upload."""
-        return torch.as_tensor(
-            np.asarray(a[order], np.float32).reshape(n_r, -1), device=dev).unbind(0)
-
-    gather_rows = (
-        device_rows(tables) if mass_dep and not use_cheby and not lagrangian else [None] * n_r)
-    mini = None
-    if use_minihalos:
-        mini_rows = device_rows(tables_mini)
-        mini = dict(
-            mturn_a=mturn_a_box, mturn_m=mturn_m_box,
-            mean_fcoll_mini=float(_f32(mean_fcoll_mini)),
-            f_limit_mini=float(_f32(f_limit_mini)),
-            ion_eff_mini=float(_f32(ion_eff_mini)),
-            gamma_prefactor_mini=float(_f32(
-                gamma_prefactor * (ion_eff_mini / max(ion_eff_gl, 1e-30)))),
-        )
-    if track_nion:
-        # the previous snapshot's tables, for Nion(z_prev, Mt)
-        p_lo, p_hi, p_tables, p_caps, p_tables_mini, p_caps_mini = _build_nion_tables_mini(
-            inputs, ladder, sigma_table, float(cosmo.dicke(prev_z_adj)), m_min, sc,
-            l10_mturns)
-        p_rows, p_rows_mini = device_rows(p_tables), device_rows(p_tables_mini)
-        prev_delta = previous_perturbed_field.density.to(dev)
-        if photoncons_state is not None:
-            prev_delta = prev_delta * float(_f32(cosmo.dicke(prev_z_adj) / cosmo.dicke(prev_redshift)))
-        mini.update(
-            prev_delta=prev_delta,
-            prev_nion=previous_ionized_box.unnormalised_nion.to(dev),
-            prev_nion_mini=previous_ionized_box.unnormalised_nion_mini.to(dev),
-        )
-
-    lagr = None
-    if lagrangian:
-        rho_b = float(_f32(cosmo.rho_mean * cosmo.OMb / cosmo.OMm))  # Msun/Mpc^3
-        lagr = dict(
-            stars=halobox.n_ion.to(dev) / rho_b,
-            wsfr=(halobox.whalo_sfr.to(dev) / rho_b if halobox.whalo_sfr is not None
-                  else torch.zeros(lshape, dtype=torch.float32, device=dev)),
-            source_filter=filters.EXP_MFP if ao.USE_EXP_FILTER else ao.hii_filter_int,
-            mfp=float(_f32(25.483241248322766 / cosmo.hlittle)),  # Songaila+10 fit
-        )
-
-    # descending order (largest R first); every scalar rounded to float32
-    steps = []
-    for k, i in enumerate(order):
-        lo, hi = _f32(d_lo[i]), _f32(d_hi[i])
-        step = dict(
-            idx=k,
-            R=float(_f32(ladder.R[i])),
-            sigma=_f32(ladder.sigma_max[i]),
-            d_lo=float(lo),
-            d_hi=float(hi),
-            span=float(hi - lo),
-            cap=float(_f32(caps[i])),
-            cheb=[float(c) for c in cheby_coeffs[i].astype(np.float32)],
-            cheb_edge=float(_f32(cheby_edge[i])),
-            table=gather_rows[k],
-        )
+        # --- minihalo turnover-mass grids (calculate_mcrit_boxes:403) -----------
+        use_minihalos = ao.USE_MINI_HALOS and mass_dep and not lagrangian
+        ion_eff_mini = sc.pop3_ion * sc.fstar_7 * sc.fesc_7
+        mean_fcoll_mini = f_limit_mini = 0.0
+        log10_mturn_m_ave = 0.0
+        prev_mfc = prev_mfc_mini = 0.0
         if use_minihalos:
-            step.update(table_mini=mini_rows[k], cap_mini=float(_f32(caps_mini[i])))
-        if track_nion:
-            plo, phi = _f32(p_lo[i]), _f32(p_hi[i])
-            step.update(
-                p_d_lo=float(plo), p_d_hi=float(phi), p_span=float(phi - plo),
-                p_table=p_rows[k], p_cap=float(_f32(p_caps[i])),
-                p_table_mini=p_rows_mini[k], p_cap_mini=float(_f32(p_caps_mini[i])),
+            mturn_a_box, mturn_m_box = mcrit_boxes(
+                redshift, inputs, sc, previous_ionized_box, spin_temp, vcb_box, dev, lshape)
+            # the stage's one host sync: the float32 box means, as the JAX
+            # package takes them
+            log10_mturn_ave, log10_mturn_m_ave = gops.means([mturn_a_box, mturn_m_box], shape)
+
+            # global normalizations at the mean turnovers
+            mt_a, mt_m = 10.0 ** log10_mturn_ave, 10.0 ** log10_mturn_m_ave
+            mean_fcoll = float(hmf.nion_general(
+                sigma_table, cosmo, hmf_int, redshift, ln_m_min, ln_m_max, mt_a, sc))
+            f_limit = float(hmf.nion_general(
+                sigma_table, cosmo, hmf_int, so.Z_HEAT_MAX, ln_m_min, ln_m_max, mt_a, sc))
+            mean_fcoll_mini = float(hmf.nion_general_mini(
+                sigma_table, cosmo, hmf_int, redshift, ln_m_min, ln_m_max, mt_m, sc))
+            f_limit_mini = float(hmf.nion_general_mini(
+                sigma_table, cosmo, hmf_int, so.Z_HEAT_MAX, ln_m_min, ln_m_max, mt_m, sc))
+
+            # trapezoidal update from the previous snapshot (set_mean_fcoll:463-529):
+            # MCG star formation follows the Mturn history, so the global Nion is
+            # carried as Nion_prev + Nion(z, Mt) - Nion(z_prev, Mt)
+            if previous_ionized_box is not None:
+                prev_mfc = float(previous_ionized_box.mean_f_coll)
+                prev_mfc_mini = float(previous_ionized_box.mean_f_coll_MINI)
+            # the previous snapshot's adjusted redshift (Z-PHOTONCONS, which the
+            # inputs refuse with USE_MINI_HALOS: kept as the JAX package has it)
+            prev_z_adj = prev_redshift
+            if photoncons_state is not None and prev_redshift is not None:
+                prev_z_adj = photoncons_state.adjusted_redshift(prev_redshift)
+            if prev_z_adj is not None and prev_mfc * ion_eff_gl > 1e-4:
+                f_prev = float(hmf.nion_general(
+                    sigma_table, cosmo, hmf_int, prev_z_adj, ln_m_min, ln_m_max, mt_a, sc))
+                mean_fcoll = prev_mfc + mean_fcoll - f_prev
+            if prev_z_adj is not None and prev_mfc_mini * ion_eff_mini > 1e-4:
+                f_prev_mini = float(hmf.nion_general_mini(
+                    sigma_table, cosmo, hmf_int, prev_z_adj, ln_m_min, ln_m_max, mt_m, sc))
+                mean_fcoll_mini = prev_mfc_mini + mean_fcoll_mini - f_prev_mini
+
+        track_nion = bool(
+            use_minihalos
+            and previous_ionized_box is not None
+            and previous_perturbed_field is not None
+            and prev_redshift is not None
+            and previous_ionized_box.unnormalised_nion is not None
+            and (prev_mfc * ion_eff_gl + prev_mfc_mini * ion_eff_mini) > 1e-4
+        )
+
+        ladder = setup_radii(inputs, m_min)
+        n_r = ladder.n
+        tracing.count("ionize.radii", n_r)
+        if track_nion and previous_ionized_box.unnormalised_nion.shape[0] != n_r:
+            track_nion = False  # the radius ladder changed (m_min moved): restart
+        order = np.argsort(ladder.R)[::-1]  # descending: largest R first
+        l10_mturns = np.linspace(*MTURN_BOUNDS, N_MTURN_TABLE)
+        use_cheby = False
+        cheby_coeffs, cheby_edge = np.zeros((n_r, CHEBY_DEG + 1)), np.zeros(n_r)
+        if use_minihalos:
+            d_lo, d_hi, tables, caps, tables_mini, caps_mini = _build_nion_tables_mini(
+                inputs, ladder, sigma_table, growth, m_min, sc, l10_mturns)
+        elif mass_dep and not lagrangian:
+            d_lo, d_hi, tables, caps = _build_nion_tables(
+                inputs, ladder, sigma_table, growth, m_min, sc
             )
-        steps.append(step)
+            # Chebyshev fits of the per-R log-Nion tables; the gather is the
+            # fallback when a fit is poor
+            cheby_coeffs, cheby_edge, use_cheby = _fit_log_cheby(tables, caps)
+        else:
+            d_lo, d_hi = np.zeros(n_r), np.ones(n_r)
+            tables, caps = np.zeros((n_r, N_DELTA_TABLE)), np.zeros(n_r)
+
+        gamma_prefactor = (
+            (1 + redshift) ** 2
+            * physconst.cm_per_Mpc
+            * physconst.sigma_HI
+            * ap.ALPHA_UVB
+            / (ap.ALPHA_UVB + 2.75)
+            * cosmo.N_b0
+            * ion_eff
+            / 1.0e-12
+        )
+        if mass_dep and not lagrangian:
+            gamma_prefactor /= sc.t_h * sc.t_star
+        # Lagrangian: the 1/(rho_crit OMb) absorber factor is applied to the
+        # grids below, so gamma_prefactor stays as it is (IonisationBox.c:215-218)
+
+        use_recomb = ao.uses_recombination
+        rec_box = None
+        if use_recomb:
+            if previous_ionized_box is not None and (
+                previous_ionized_box.cumulative_recombinations is not None
+            ):
+                rec_box = previous_ionized_box.cumulative_recombinations.to(dev)
+            else:
+                rec_box = torch.zeros(lshape, dtype=torch.float32, device=dev)
+
+        def device_rows(a):
+            """Per-R table rows in scan order, flattened, as one float32 upload."""
+            return to_device(np.asarray(a[order], np.float32).reshape(n_r, -1), dev).unbind(0)
+
+        gather_rows = (
+            device_rows(tables) if mass_dep and not use_cheby and not lagrangian else [None] * n_r)
+        mini = None
+        if use_minihalos:
+            mini_rows = device_rows(tables_mini)
+            mini = dict(
+                mturn_a=mturn_a_box, mturn_m=mturn_m_box,
+                mean_fcoll_mini=float(_f32(mean_fcoll_mini)),
+                f_limit_mini=float(_f32(f_limit_mini)),
+                ion_eff_mini=float(_f32(ion_eff_mini)),
+                gamma_prefactor_mini=float(_f32(
+                    gamma_prefactor * (ion_eff_mini / max(ion_eff_gl, 1e-30)))),
+            )
+        if track_nion:
+            # the previous snapshot's tables, for Nion(z_prev, Mt)
+            p_lo, p_hi, p_tables, p_caps, p_tables_mini, p_caps_mini = _build_nion_tables_mini(
+                inputs, ladder, sigma_table, float(cosmo.dicke(prev_z_adj)), m_min, sc,
+                l10_mturns)
+            p_rows, p_rows_mini = device_rows(p_tables), device_rows(p_tables_mini)
+            prev_delta = previous_perturbed_field.density.to(dev)
+            if photoncons_state is not None:
+                prev_delta = prev_delta * float(
+                    _f32(cosmo.dicke(prev_z_adj) / cosmo.dicke(prev_redshift)))
+            mini.update(
+                prev_delta=prev_delta,
+                prev_nion=previous_ionized_box.unnormalised_nion.to(dev),
+                prev_nion_mini=previous_ionized_box.unnormalised_nion_mini.to(dev),
+            )
+
+        lagr = None
+        if lagrangian:
+            rho_b = float(_f32(cosmo.rho_mean * cosmo.OMb / cosmo.OMm))  # Msun/Mpc^3
+            lagr = dict(
+                stars=halobox.n_ion.to(dev) / rho_b,
+                wsfr=(halobox.whalo_sfr.to(dev) / rho_b if halobox.whalo_sfr is not None
+                      else torch.zeros(lshape, dtype=torch.float32, device=dev)),
+                source_filter=filters.EXP_MFP if ao.USE_EXP_FILTER else ao.hii_filter_int,
+                mfp=float(_f32(25.483241248322766 / cosmo.hlittle)),  # Songaila+10 fit
+            )
+
+        # descending order (largest R first); every scalar rounded to float32
+        steps = []
+        for k, i in enumerate(order):
+            lo, hi = _f32(d_lo[i]), _f32(d_hi[i])
+            step = dict(
+                idx=k,
+                R=float(_f32(ladder.R[i])),
+                sigma=_f32(ladder.sigma_max[i]),
+                d_lo=float(lo),
+                d_hi=float(hi),
+                span=float(hi - lo),
+                cap=float(_f32(caps[i])),
+                cheb=[float(c) for c in cheby_coeffs[i].astype(np.float32)],
+                cheb_edge=float(_f32(cheby_edge[i])),
+                table=gather_rows[k],
+            )
+            if use_minihalos:
+                step.update(table_mini=mini_rows[k], cap_mini=float(_f32(caps_mini[i])))
+            if track_nion:
+                plo, phi = _f32(p_lo[i]), _f32(p_hi[i])
+                step.update(
+                    p_d_lo=float(plo), p_d_hi=float(phi), p_span=float(phi - plo),
+                    p_table=p_rows[k], p_cap=float(_f32(p_caps[i])),
+                    p_table_mini=p_rows_mini[k], p_cap_mini=float(_f32(p_caps_mini[i])),
+                )
+            steps.append(step)
 
     # Z-PHOTONCONS: the scan reads the density scaled to the adjusted redshift
     delta_adj = density * float(_f32(photoncons_factor)) if photoncons_factor != 1.0 else density
@@ -919,7 +925,7 @@ def compute_ionization_field(
         if ao.RECOMB_MODEL == "INHOMOGENEOUS":
             cumulative_rec = _recomb_update(
                 rec_box, density, gamma, xh,
-                torch.as_tensor(np.asarray(rt.table, np.float32), device=dev),
+                to_device(np.asarray(rt.table, np.float32), dev),
                 float(_f32(rt.ln_gamma[0])),
                 float(_f32(recomb_module.RR_DEL_LNGAMMA)),
                 float(_f32(recomb_module.RR_DEL_Z)),
@@ -950,7 +956,7 @@ def compute_ionization_field(
             )
 
         def scalar(v):
-            return torch.tensor(v, dtype=torch.float32, device=dev)
+            return to_device(v, dev, torch.float32)
 
         kinetic_temperature = _ionized_temperature(
             xh, z_reion, density, tk_neutral, scalar(ap.T_RE), scalar(stored_redshift)

@@ -24,7 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .._device import resolve_device
+from .._device import resolve_device, to_device
 from ..cosmology.constants import FRACT_FLOAT_ERR, physconst
 from ..inputs import InputParameters
 from ..ops import cic, deposit, fft, filters, grids
@@ -84,7 +84,7 @@ def _displace_and_scatter(hires_density, vel, vel_2lpt, d_init, fac_za, fac_2lpt
     particles.  Returns the accumulated mass."""
     dev = hires_density.device
     nx, ny, nz = hi_shape
-    maps = [torch.as_tensor((np.arange(n) * (o / n) + 0.5).astype(np.int64) % o, device=dev)
+    maps = [to_device((np.arange(n) * (o / n) + 0.5).astype(np.int64) % o, dev)
             for n, o in zip(hi_shape, out_shape)]
     # the float32 growth factors times the cells per Mpc, in float32
     scale = [float(_f32(fac_za) * _f32(hi_shape[i]) / _f32(box_lens[i])) for i in range(3)]

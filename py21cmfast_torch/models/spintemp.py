@@ -37,7 +37,8 @@ import dataclasses
 import numpy as np
 import torch
 
-from .._device import resolve_device
+from .. import tracing
+from .._device import resolve_device, to_device
 from ..cosmology.constants import FRACT_FLOAT_ERR, physconst
 from ..cosmology.recombination import RecombinationHistory
 from ..inputs import InputParameters
@@ -271,9 +272,10 @@ def _build_sfrd_tables(inputs, ladder, sigma_table, sc_zp):
 # Next-node SFRD-table prefetch: the per-shell tables are pure-numpy host work
 # that would otherwise serialize with the device work.  A single worker thread
 # builds the NEXT node's tables while the main thread runs this node (numpy
-# releases the GIL, and CUDA launches are asynchronous).  `stats` counts the
-# seconds the worker spent building and the seconds a node waited for it.
-_SFRD_PREFETCH: dict = {"pool": None, "futs": {}, "stats": {"build_s": 0.0, "wait_s": 0.0}}
+# releases the GIL, and CUDA launches are asynchronous).  The recorder books
+# the worker's seconds as `ts.sfrd_build`, in the run and node that asked for
+# them, and a node's wait for them as `ts.sfrd_wait`.
+_SFRD_PREFETCH: dict = {"pool": None, "futs": {}}
 
 
 def prefetch_sfrd_tables(zp: float, inputs: InputParameters) -> None:
@@ -282,7 +284,6 @@ def prefetch_sfrd_tables(zp: float, inputs: InputParameters) -> None:
     if inputs.matter_options.SOURCE_MODEL != "E-INTEGRAL":
         return
     import concurrent.futures
-    import time
 
     if _SFRD_PREFETCH["pool"] is None:
         _SFRD_PREFETCH["pool"] = concurrent.futures.ThreadPoolExecutor(
@@ -294,32 +295,27 @@ def prefetch_sfrd_tables(zp: float, inputs: InputParameters) -> None:
         return
     if len(futs) > 4:  # stale entries of runs that stopped early
         futs.clear()
+    book = tracing.here()
 
     def work():
-        t0 = time.perf_counter()
-        ladder = setup_z_edges(float(zp), inputs)
-        out = _build_sfrd_tables(
-            inputs, ladder, _get_sigma_table(inputs),
-            hmf.set_scaling_constants(float(zp), inputs),
-        )
-        _SFRD_PREFETCH["stats"]["build_s"] += time.perf_counter() - t0
-        return out
+        with tracing.span("ts.sfrd_build", at=book):
+            ladder = setup_z_edges(float(zp), inputs)
+            return _build_sfrd_tables(
+                inputs, ladder, _get_sigma_table(inputs),
+                hmf.set_scaling_constants(float(zp), inputs),
+            )
 
     futs[key] = _SFRD_PREFETCH["pool"].submit(work)
 
 
 def _sfrd_tables_for(zp, inputs, ladder, sigma_table, sc_zp):
     """The prefetched tables when available, a synchronous build otherwise."""
-    import time
-
     fut = _SFRD_PREFETCH["futs"].pop(
         (round(float(zp), 9), inputs.full_hash), None
     )
     if fut is not None:
-        t0 = time.perf_counter()
-        out = fut.result()
-        _SFRD_PREFETCH["stats"]["wait_s"] += time.perf_counter() - t0
-        return out
+        with tracing.span("ts.sfrd_wait"):
+            return fut.result()
     return _build_sfrd_tables(inputs, ladder, sigma_table, sc_zp)
 
 
@@ -404,7 +400,7 @@ def _ts_shell_scan(
     # per-cell x_e interpolation index into the 14-point deposition-fraction
     # axis: the count of nodes <= x_e, less one
     xhii = np.asarray(heating.X_INT_XHII, np.float32)
-    xhii_grid = torch.as_tensor(xhii, device=density_pf.device)
+    xhii_grid = to_device(xhii, density_pf.device)
     lo, hi = float(xhii[0] * _f32(1.001)), float(xhii[-1] * _f32(0.999))
     xe_call = torch.clamp(prev_xe, lo, hi)
     xidx = torch.clamp(torch.bucketize(xe_call, xhii_grid, right=True) - 1, 0, 12)
@@ -1198,7 +1194,7 @@ def shells_from_tables(h, device):
         return float(_f32(v))
 
     def t(a):
-        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+        return to_device(np.asarray(a, np.float32), device)
 
     gather = not h["use_cheby"]
     shells = []
@@ -1308,40 +1304,46 @@ def compute_spin_temperature(
     means = gops.means([prev_xe.double()] + ([mcrit_box] if mcrit_box is not None else []),
                        so.lowres_shape)
     x_e_ave, ave_mcrit = means[0], (means[1] if mcrit_box is not None else 0.0)
-    h = ts_host_tables(
-        redshift, inputs, float(perturbed_field.redshift), prev_redshift, x_e_ave, ave_mcrit,
-        lagrangian=lagrangian, lagr_mcrit=lagr_mcrit,
-        lagr_mini=source is not None and "sfr_mini" in source,
-    )
+    with tracing.span("ts.host_tables"):
+        h = ts_host_tables(
+            redshift, inputs, float(perturbed_field.redshift), prev_redshift, x_e_ave, ave_mcrit,
+            lagrangian=lagrangian, lagr_mcrit=lagr_mcrit,
+            lagr_mini=source is not None and "sfr_mini" in source,
+        )
     consts = {k: float(_f32(v)) for k, v in h["consts"].items()}
 
     def tensor(a):
-        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+        return to_device(np.asarray(a, np.float32), dev)
 
     flags = dict(use_xray_heat=bool(ao.USE_X_RAY_HEATING), use_lya_heat=h["use_lya_heat"])
     mini = {}
     if mcrit_box is not None:
         mini = dict(mcrit_box=mcrit_box, mcrit_clip=float(_f32(h["mcrit_clip"])),
                     fstar7=float(_f32(h["fstar7"])), lx_ratio=float(_f32(h["lx_ratio"])))
-    scan_args = (density, prev_xe, shells_from_tables(h, dev), consts["inv_growth_pf"],
-                 float(_f32(h["fstar10"])))
+    with tracing.span("ts.upload"):
+        shells = shells_from_tables(h, dev)
+    scan_args = (density, prev_xe, shells, consts["inv_growth_pf"], float(_f32(h["fstar10"])))
     scan_kwargs = dict(
         shape=so.lowres_shape, box_lens=so.box_lens, heat_filter=ao.heat_filter_int,
         use_cheby=h["use_cheby"], const_model=h["const_model"], source=source, **flags, **mini,
     )
-    if mesh is not None:
-        from ..parallel.shardcall import sharded_kernel_call
+    with tracing.span("ts.scan"):
+        if mesh is not None:
+            from ..parallel.shardcall import sharded_kernel_call
 
-        accs = sharded_kernel_call(mesh, _ts_shell_scan, scan_args, scan_kwargs, so.lowres_shape)
-    else:
-        accs = _ts_shell_scan(*scan_args, **scan_kwargs)
-    del scan_args, scan_kwargs
+            accs = sharded_kernel_call(
+                mesh, _ts_shell_scan, scan_args, scan_kwargs, so.lowres_shape)
+        else:
+            accs = _ts_shell_scan(*scan_args, **scan_kwargs)
+    del shells, scan_args, scan_kwargs
     del mcrit_box, mini, source
+    with tracing.span("ts.upload"):
+        lya_tbl_cont, lya_tbl_inj = tensor(h["lya_tbl_cont"]), tensor(h["lya_tbl_inj"])
+        kappa_knots = tuple(tensor(a) for a in h["kappa_knots"])
     ts, tk, x_e, j_lya, j_lw = _ts_cell_update(
-        density, prev_ts, prev_tk, prev_xe, accs,
-        tensor(h["lya_tbl_cont"]), tensor(h["lya_tbl_inj"]), consts,
-        tuple(tensor(a) for a in h["kappa_knots"]),
-        use_cmb_heat=bool(ao.USE_CMB_HEATING), use_minihalos=h["mini_terms"], **flags,
+        density, prev_ts, prev_tk, prev_xe, accs, lya_tbl_cont, lya_tbl_inj, consts,
+        kappa_knots, use_cmb_heat=bool(ao.USE_CMB_HEATING), use_minihalos=h["mini_terms"],
+        **flags,
     )
 
     box = TsBox(

@@ -20,6 +20,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .._device import to_device
+
 TOPHAT = 0
 SHARPK = 1
 GAUSSIAN = 2
@@ -279,7 +281,7 @@ def ms_interp_grid(kmag, k_table):
     last knot.  The k grid and the table's knots are the same for every shell
     of a snapshot, so this is computed once and `w_multiple_scattering`
     gathers each shell's window with it."""
-    xp = torch.as_tensor(np.asarray(k_table, np.float32), device=kmag.device)
+    xp = to_device(np.asarray(k_table, np.float32), kmag.device)
     i = torch.clamp(torch.searchsorted(xp, kmag, right=True), 1, xp.shape[0] - 1)
     dx = xp[i] - xp[i - 1]
     ratio = (kmag - xp[i - 1]) / dx
@@ -289,7 +291,7 @@ def ms_interp_grid(kmag, k_table):
 def w_multiple_scattering(grid, w_table):
     """The tabulated MS window on the |k| grid (jnp.interp, ends held)."""
     i, ratio, left, right = grid
-    fp = torch.as_tensor(np.asarray(w_table, np.float32), device=ratio.device)
+    fp = to_device(np.asarray(w_table, np.float32), ratio.device)
     f_lo = fp[i - 1]
     f = f_lo + ratio * (fp[i] - f_lo)
     f = torch.where(left, fp[0], f)

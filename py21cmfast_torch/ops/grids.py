@@ -10,6 +10,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .._device import to_device
+
 
 _scalars: dict = {}
 
@@ -19,7 +21,7 @@ def device_scalar(value, dtype, device):
     to the card and waits for it."""
     key = (float(value), dtype, torch.device(device))
     if key not in _scalars:
-        _scalars[key] = torch.tensor(float(value), dtype=dtype, device=device)
+        _scalars[key] = to_device(float(value), device, dtype)
     return _scalars[key]
 
 
@@ -36,7 +38,7 @@ def k_axes(shape, box_lens, device):
     kx = np.fft.fftfreq(nx) * nx * 2 * np.pi / lx
     ky = np.fft.fftfreq(ny) * ny * 2 * np.pi / ly
     kz = np.fft.rfftfreq(nz) * nz * 2 * np.pi / lz
-    return tuple(torch.as_tensor(k, dtype=torch.float32, device=device) for k in (kx, ky, kz))
+    return tuple(to_device(k, device, torch.float32) for k in (kx, ky, kz))
 
 
 def ksq_grid(shape, box_lens, device):
@@ -72,7 +74,7 @@ def subsample(field, out_shape):
     reference does when assigning hires -> lowres grids."""
     for axis in range(3):
         idx = resample_indices(out_shape[axis], field.shape[axis])
-        field = field.index_select(axis, torch.as_tensor(idx, device=field.device))
+        field = field.index_select(axis, to_device(idx, field.device))
     return field
 
 

@@ -10,7 +10,9 @@ slab, and the few places where the ranks meet are the methods of `Mesh`.
 Backends: NCCL on `cuda:LOCAL_RANK` by default; gloo only when the caller
 asks for it (the CPU tests, and two ranks sharing one card).  Under gloo a
 CUDA tensor is copied to the host for the collective and back by the
-collective itself (`Mesh.stats["host_bytes"]` counts those bytes).  Complex
+collective itself (the recorder's counter `mesh.host_bytes` counts those
+bytes, beside `mesh.calls`, `mesh.bytes` and the span `mesh.collective`:
+`tracing.totals()`, since the sharded drivers run outside any run).  Complex
 tensors travel as their `torch.view_as_real` float32 views.  No collective
 falls back to anything: a failed initialization or a collective error
 raises.
@@ -18,12 +20,14 @@ raises.
 
 from __future__ import annotations
 
-import time
 from contextlib import contextmanager
 
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from .. import tracing
+from .._device import to_device
 
 __all__ = ["Mesh", "make_mesh", "slab_bounds", "gather_slabs"]
 
@@ -50,10 +54,8 @@ class Mesh:
         self.size = size
         self.device = device
         self.backend = backend
-        # counters of the collectives: calls, bytes sent, bytes copied
-        # between the card and the host (gloo), and with `timed` the wall
-        # seconds spent in them (the card is synchronised around each)
-        self.stats = dict(calls=0, bytes=0, host_bytes=0, seconds=0.0)
+        # with `timed` the card is synchronised around each collective, so
+        # that the span `mesh.collective` holds its wall seconds
         self.timed = False
 
     def __repr__(self):
@@ -69,27 +71,22 @@ class Mesh:
         float32 tensor on the mesh's device when given numpy."""
         x0, x1 = self.bounds(x.shape[0])
         if isinstance(x, np.ndarray):
-            return torch.as_tensor(np.ascontiguousarray(x[x0:x1]), device=self.device)
+            return to_device(np.ascontiguousarray(x[x0:x1]), self.device)
         return x[x0:x1].contiguous()
 
     # -- plumbing ----------------------------------------------------------
 
     @contextmanager
     def _collective(self, nbytes: int):
-        self.stats["calls"] += 1
-        self.stats["bytes"] += int(nbytes)
-        if not self.timed:
-            yield
-            return
-        if self.device.type == "cuda":
+        tracing.count("mesh.calls")
+        tracing.count("mesh.bytes", int(nbytes))
+        sync = self.timed and self.device.type == "cuda"
+        if sync:
             torch.cuda.synchronize(self.device)
-        t0 = time.perf_counter()
-        try:
+        with tracing.span("mesh.collective"):
             yield
-        finally:
-            if self.device.type == "cuda":
+            if sync:
                 torch.cuda.synchronize(self.device)
-            self.stats["seconds"] += time.perf_counter() - t0
 
     def _wire(self, t):
         """The tensor the backend takes: real, contiguous, and on the host
@@ -98,14 +95,14 @@ class Mesh:
             t = torch.view_as_real(t)
         t = t.contiguous()
         if self.backend == "gloo" and t.device.type == "cuda":
-            self.stats["host_bytes"] += t.numel() * t.element_size()
+            tracing.count("mesh.host_bytes", t.numel() * t.element_size())
             t = t.cpu()
         return t
 
     def _unwire(self, t, like):
         """Back to the device and dtype of `like`."""
         if t.device != like.device:
-            self.stats["host_bytes"] += t.numel() * t.element_size()
+            tracing.count("mesh.host_bytes", t.numel() * t.element_size())
             t = t.to(like.device)
         if like.is_complex():
             t = torch.view_as_complex(t.contiguous())
@@ -186,7 +183,7 @@ class Mesh:
     def all_reduce_floats(self, values, op: str = "sum"):
         """The sums (or maxima) over the ranks of a list of Python floats,
         in float64."""
-        t = torch.as_tensor(np.asarray(values, np.float64), device=self.device)
+        t = to_device(np.asarray(values, np.float64), self.device)
         return self.all_reduce(t, op).cpu().tolist()
 
     def all_gather(self, x):
@@ -201,8 +198,8 @@ class Mesh:
         """The ranks' tensors of any number of rows (same trailing shape)
         concatenated along dim 0 in rank order: the counts first, then the
         rows padded to the longest."""
-        counts = self.all_gather(torch.tensor([x.shape[0]], dtype=torch.int64,
-                                              device=self.device)).cpu().tolist()
+        counts = self.all_gather(
+            to_device([x.shape[0]], self.device, torch.int64)).cpu().tolist()
         n_max = max(counts)
         pad = torch.zeros((n_max,) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device)
         pad[:x.shape[0]] = x

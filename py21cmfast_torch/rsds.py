@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ._device import resolve_device
+from ._device import resolve_device, to_device
 from .inputs import InputParameters
 
 __all__ = ["include_dvdr_in_tau21", "apply_rsds", "rsds_shift"]
@@ -32,7 +32,7 @@ def _hubble_of_z(inputs: InputParameters, redshifts):
 def _as_tensor(x, device):
     if isinstance(x, torch.Tensor):
         return x
-    return torch.as_tensor(np.asarray(x, np.float32), device=resolve_device(device))
+    return to_device(np.asarray(x, np.float32), resolve_device(device))
 
 
 def _gradient_last_axis(arr, dx, periodic: bool):
@@ -68,7 +68,7 @@ def include_dvdr_in_tau21(
         raise ValueError("tau_21 required when USE_TS_FLUCT is True")
     bt = _as_tensor(brightness_temp, device)
     vel = _as_tensor(los_velocity, device)
-    H = torch.as_tensor(_hubble_of_z(inputs, redshifts).astype(np.float32), device=bt.device)
+    H = to_device(_hubble_of_z(inputs, redshifts).astype(np.float32), bt.device)
 
     vel_grad = _gradient_last_axis(vel, dx, periodic)
     if tau_21 is None:
@@ -98,7 +98,7 @@ def _fine_grid(n_slices: int, n_sub: int, periodic: bool, device):
         knots = np.concatenate([knots[:1] - np.float32(1), knots, knots[-1:] + np.float32(1)])
     i = np.clip(np.searchsorted(knots, fine, side="right"), 1, len(knots) - 1)
     grid = (i - 1, fine - knots[i - 1], fine < knots[0], fine > knots[-1], fine * np.float32(n_sub))
-    return tuple(torch.as_tensor(a, device=device) for a in grid)
+    return tuple(to_device(a, device) for a in grid)
 
 
 def _shift_last_axis(field, disp, grid, n_sub: int, periodic: bool):
@@ -162,7 +162,7 @@ def apply_rsds(
     vel = _as_tensor(los_velocity, device)
     H = _hubble_of_z(inputs, redshifts)  # 1/s
     cell = inputs.simulation_options.box_len / inputs.simulation_options.HII_DIM
-    disp_pix = vel / torch.as_tensor((H * cell).astype(np.float32), device=field.device)
+    disp_pix = vel / to_device((H * cell).astype(np.float32), field.device)
 
     n_slices = field.shape[-1]
     field2d = field.reshape(-1, n_slices)

@@ -25,7 +25,7 @@ import pytest
 import torch
 from test_torch_ics import jax_inputs, numpy_grf, port_inputs
 
-from py21cmfast_torch import interop
+from py21cmfast_torch import interop, tracing
 from py21cmfast_torch.outputs import XraySourceBox
 from py21cmfast_torch.models import heating as theat
 from py21cmfast_torch.models import lya_heating as tlya
@@ -406,14 +406,16 @@ def test_trilerp_matches_jax():
 
 def test_prefetch_builds_the_tables_a_node_then_takes(chain):
     """prefetch_sfrd_tables builds on its worker what _sfrd_tables_for then
-    hands to the node, identical to a synchronous build."""
+    hands to the node, identical to a synchronous build; the recorder books
+    the worker's seconds as `ts.sfrd_build`."""
     tinp, z = chain["tinp"], 13.375
     ladder = tsp.setup_z_edges(z, tinp)
     direct = tsp._build_sfrd_tables(tinp, ladder, tsp._get_sigma_table(tinp), None)
     tsp.prefetch_sfrd_tables(z, tinp)
     assert len(tsp._SFRD_PREFETCH["futs"]) == 1
     taken = tsp._sfrd_tables_for(z, tinp, ladder, tsp._get_sigma_table(tinp), None)
-    assert not tsp._SFRD_PREFETCH["futs"] and tsp._SFRD_PREFETCH["stats"]["build_s"] > 0
+    build_s = tracing.totals()["spans"]["ts.sfrd_build"][1]
+    assert not tsp._SFRD_PREFETCH["futs"] and build_s > 0
     for g, r in zip(taken, direct):
         np.testing.assert_array_equal(g, r)
     tsp.prefetch_sfrd_tables(z, tinp.evolve_input_structs(SOURCE_MODEL="CONST-ION-EFF"))
