@@ -176,8 +176,12 @@ def freq_integrals(zp, x_e_values, lower_limits_hz, astro_params, Y_He):
 
     The integrals are *linear* in the deposition-table values, so each shell
     integrates the 14 x_e table rows once and the x_e dependence is a lerp of
-    row integrals — 14x fewer interpolations than evaluating per x_e (this was
-    ~5 s/snapshot of host time).
+    row integrals.  Linear interpolation in energy is linear too: the rows
+    interpolated at the nodes and summed with quadrature weights g equal the
+    table times v = W^T g, W the interpolation matrix (two nonzeros a node).
+    So every (shell, species) scatters its weights onto the 258 energy bins
+    (`_bin_weights`) and one product of the stacked tables with the weight
+    vectors gives all row integrals of the ladder at once.
     """
     xint = get_xint_tables()
     alpha_x = astro_params.X_RAY_SPEC_INDEX
@@ -186,6 +190,7 @@ def freq_integrals(zp, x_e_values, lower_limits_hz, astro_params, Y_He):
     fH = h_frac(Y_He)
     fHe = he_frac(Y_He)
 
+    lower_limits_hz = np.asarray(lower_limits_hz, np.float64)
     n_r = len(lower_limits_hz)
     x_e_values = np.asarray(x_e_values, np.float64)
     n_xe = len(x_e_values)
@@ -194,60 +199,102 @@ def freq_integrals(zp, x_e_values, lower_limits_hz, astro_params, Y_He):
     lya = np.zeros((n_r, n_xe))
 
     ix_all, fr_all = xint.xe_index(x_e_values)
-    n_rows = len(X_INT_XHII)
     n_nodes = 1024
     energies = xint.energies
+    tabs = xint.tables
 
-    def rows(key, E):
-        tab = xint.tables[key]
-        out = np.empty((n_rows, len(E)))
-        for i in range(n_rows):
-            out[i] = np.interp(E, energies, tab[i])
-        fill = 1.0 if key == "f_heat" else 0.0
-        out[:, E < energies[0]] = fill
-        return out
+    live = lower_limits_hz < nu_max
+    if not live.any():
+        return heat, ion, lya
+    ln_nu = np.linspace(np.log(lower_limits_hz[live]), np.log(nu_max), n_nodes, axis=-1)
+    nu = np.exp(ln_nu)  # (n_live, n_nodes)
+    w = np.gradient(ln_nu, axis=-1) * nu
+    spec_w = (nu / nu0) ** (-alpha_x - 1) * w
 
     species = (
-        ("HI", physconst.nu_ion_HI, sigma_HI, fH, "neutral"),
-        ("HeI", physconst.nu_ion_HeI, sigma_HeI, fHe, "neutral"),
-        ("HeII", physconst.nu_ion_HeII, sigma_HeII, fHe, "ionized"),
+        (physconst.nu_ion_HI, sigma_HI, fH, "neutral"),
+        (physconst.nu_ion_HeI, sigma_HeI, fHe, "neutral"),
+        (physconst.nu_ion_HeII, sigma_HeII, fHe, "ionized"),
     )
+    # per species, shell and node: the deposited energy and the weights
+    E, g, g_heat = [], [], []
+    for nu_th, sig_fn, abund, _ in species:
+        E.append((nu - nu_th) / physconst.eV_to_Hz)
+        g.append(spec_w * sig_fn(nu) * abund)
+        g_heat.append(g[-1] * physconst.h_p * (nu - nu_th))
+    E, g, g_heat = np.stack(E), np.stack(g), np.stack(g_heat)
 
-    for i_r, nu_lo in enumerate(lower_limits_hz):
-        if nu_lo >= nu_max:
-            continue
-        ln_nu = np.linspace(np.log(nu_lo), np.log(nu_max), n_nodes)
-        nu = np.exp(ln_nu)
-        w = np.gradient(ln_nu) * nu
-        spec_w = (nu / nu0) ** (-alpha_x - 1) * w
+    # row integrals, (species, shell, table row): the x_e population factor
+    # (1-xe) or xe is applied after the lerp; below the tabulated energies
+    # the electron deposits everything as heat (f_heat 1, the others 0)
+    (v, _), (v_heat, below_heat) = _bin_weights(E, (g, g_heat), energies)
+    n_ion_tab = tabs["n_ionHI"] + tabs["n_ionHeI"] + tabs["n_ionHeII"]
+    i_heat_rows = v_heat @ tabs["f_heat"].T + below_heat[..., None]
+    i_ion_rows = v @ n_ion_tab.T + np.sum(g, axis=-1)[..., None]  # the +1 primary ionization
+    i_lya_rows = v @ tabs["n_lya"].T
 
-        # per-species, per-row integrals (the x_e population factor
-        # (1-xe) or xe is applied after the lerp)
-        for _name, nu_th, sig_fn, abund, pop in species:
-            sig = sig_fn(nu)
-            E = (nu - nu_th) / physconst.eV_to_Hz
-            g = spec_w * sig * abund
-            i_heat_rows = rows("f_heat", E) @ (g * physconst.h_p * (nu - nu_th))
-            i_ion_rows = (
-                rows("n_ionHI", E) + rows("n_ionHeI", E) + rows("n_ionHeII", E)
-            ) @ g + np.sum(g)  # the +1 primary ionization
-            i_lya_rows = rows("n_lya", E) @ g
+    def lerp(rows_int):
+        return rows_int[:, ix_all] + (rows_int[:, ix_all + 1] - rows_int[:, ix_all]) * fr_all
 
-            def lerp(rows_int):
-                return rows_int[ix_all] + (
-                    rows_int[ix_all + 1] - rows_int[ix_all]
-                ) * fr_all
-
-            popf = (1.0 - x_e_values) if pop == "neutral" else x_e_values
-            heat[i_r] += lerp(i_heat_rows) * popf
-            ion[i_r] += lerp(i_ion_rows) * popf
-            lya[i_r] += lerp(i_lya_rows) * popf
+    for k, (*_, pop) in enumerate(species):
+        popf = (1.0 - x_e_values) if pop == "neutral" else x_e_values
+        heat[live] += lerp(i_heat_rows[k]) * popf
+        ion[live] += lerp(i_ion_rows[k]) * popf
+        lya[live] += lerp(i_lya_rows[k]) * popf
 
     return heat, ion, lya
 
 
+def _bin_weights(E, weights, energies):
+    """Scatter quadrature weights onto the energy bins of linear interpolation.
+
+    `E` (..., n_nodes) are the nodes' energies and each array of `weights`
+    has E's shape.  For each array, returns its weight vectors (...,
+    len(energies)), so that `v @ tab` is the sum over nodes of the weight
+    times `np.interp(E, energies, tab)` but for the nodes below
+    `energies[0]`, and the summed weights (...) of those nodes, which take
+    the table's fill instead.  As in np.interp, a node at or above
+    `energies[-1]` takes the last column."""
+    n_bins = len(energies)
+    lead = E.shape[:-1]
+    size = int(np.prod(lead)) * n_bins
+    below = E < energies[0]
+    j = np.searchsorted(energies, E, side="right") - 1
+    np.clip(j, 0, n_bins - 2, out=j)
+    e_lo = energies[j]
+    frac = (E - e_lo) / (energies[j + 1] - e_lo)
+    frac[E >= energies[-1]] = 1.0
+    # bins of the flattened (rows, n_bins) output
+    lo_bin = (j + np.arange(0, size, n_bins).reshape(lead + (1,))).ravel()
+    frac = frac.ravel()
+    out = []
+    for wgt in weights:
+        inside = np.where(below, 0.0, wgt).ravel()
+        hi_w = inside * frac
+        v = np.bincount(lo_bin, inside - hi_w, minlength=size)
+        v += np.bincount(lo_bin + 1, hi_w, minlength=size)
+        out.append((v.reshape(lead + (n_bins,)), np.sum(wgt, axis=-1, where=below)))
+    return out
+
+
 # ---------------------------------------------------------------------------
 # X-ray optical depth and the tau=1 horizon (heating_helper:901-1226)
+
+
+def _per_row(curves, zhat):
+    """Evaluate the minihalo curves of `tau_x` on its (rows, nodes) grid:
+    none, one for every row, or one a row, each distinct curve called once."""
+    if curves is None:
+        return 0.0
+    if callable(curves):
+        return curves(zhat)
+    out = np.empty_like(zhat)
+    rows = {}
+    for i, fn in enumerate(curves):
+        rows.setdefault(id(fn), (fn, []))[1].append(i)
+    for fn, idx in rows.values():
+        out[idx] = fn(zhat[idx])
+    return out
 
 
 def tau_x(nu_at_zp, zp, zpp, x_e_ave, nion_of_z, ion_eff, N_b0, dtdz_fn, Y_He, n_nodes=96,
@@ -257,15 +304,19 @@ def tau_x(nu_at_zp, zp, zpp, x_e_ave, nion_of_z, ion_eff, N_b0, dtdz_fn, Y_He, n
     `nion_of_z` is a callable giving the global relative Nion at z (the mean
     collapsed/ionizing fraction entering the HI filling factor estimate).
     With minihalos, `nion_mini_of_z` adds the MCG ionizing contribution to
-    the filling factor (tauX_integrand_MINI, heating_helper_progs.c:901-941)."""
+    the filling factor (tauX_integrand_MINI, heating_helper_progs.c:901-941).
+
+    `nu_at_zp` and `zpp` may be arrays of one shape (rows): each row is
+    integrated on its own grid, and `nion_mini_of_z` may then be a sequence
+    of per-row curves."""
     # ascending grid: zhat runs zp -> zpp so the trapezoid weights are
     # positive (a descending grid silently returned tau < 0, which made
     # nu_tau_one bail to its 24.6 eV floor and turned OFF all X-ray
     # attenuation — hugely over-heating every USE_TS_FLUCT config)
-    zhat = np.linspace(zp, zpp, n_nodes)
-    nuhat = nu_at_zp / (1 + zp) * (1 + zhat)
+    zhat = np.ascontiguousarray(np.linspace(zp, zpp, n_nodes, axis=-1))
+    nuhat = np.asarray(nu_at_zp, np.float64)[..., None] / (1 + zp) * (1 + zhat)
     fcoll = nion_of_z(zhat)
-    fcoll_mini = nion_mini_of_z(zhat) if nion_mini_of_z is not None else 0.0
+    fcoll_mini = _per_row(nion_mini_of_z, zhat)
     nion_tot = ion_eff * fcoll + ion_eff_mini * fcoll_mini
     no_light = (fcoll < 1e-20) & (np.asarray(fcoll_mini) < 1e-20)
     fill = np.where(no_light, 1.0, 1 - nion_tot / (1.0 - x_e_ave))
@@ -280,38 +331,54 @@ def tau_x(nu_at_zp, zp, zpp, x_e_ave, nion_of_z, ion_eff, N_b0, dtdz_fn, Y_He, n
     drpropdz = physconst.c_cms * dtdz_fn(zhat)  # negative
     n = N_b0 * (1 + zhat) ** 3
     integrand = np.abs(drpropdz) * n * fill * sigma
-    return np.trapezoid(integrand, zhat)
+    return np.trapezoid(integrand, zhat, axis=-1)
 
 
 def nu_tau_one(zp, zpp, x_e_ave, nion_of_z, ion_eff, N_b0, dtdz_fn, Y_He,
                nion_mini_of_z=None, ion_eff_mini=0.0):
     """Frequency where tau_X = 1 (bisection in log nu, heating_helper:1162-1226;
-    the mini args give the nu_tau_one_MINI variant, :1094-1160)."""
-    if x_e_ave > 0.9999:
-        return physconst.nu_ion_HeI
+    the mini args give the nu_tau_one_MINI variant, :1094-1160).
 
-    def f(ln_nu):
+    `zpp` may be an array of shell redshifts: one lockstep bisection then
+    finds every shell's horizon, each step evaluating tau_X once for the
+    shells still in play, and `nion_mini_of_z` may be a sequence of per-shell
+    curves.  Each shell keeps its own bracket, midpoints and exits, so its
+    horizon is the one a bisection of that shell alone finds."""
+    scalar = np.ndim(zpp) == 0
+    zpp = np.atleast_1d(np.asarray(zpp, np.float64))
+    lo = np.full(zpp.shape, np.log(physconst.nu_ion_HeI))
+    hi = np.full(zpp.shape, np.log(1e6 * physconst.eV_to_Hz))
+    out = np.full(zpp.shape, physconst.nu_ion_HeI)
+    if x_e_ave > 0.9999:
+        return out[0] if scalar else out
+
+    def f(rows, ln_nu):
+        curves = nion_mini_of_z
+        if curves is not None and not callable(curves):
+            curves = [curves[i] for i in rows]
         return (
-            tau_x(np.exp(ln_nu), zp, zpp, x_e_ave, nion_of_z, ion_eff, N_b0, dtdz_fn,
-                  Y_He, nion_mini_of_z=nion_mini_of_z, ion_eff_mini=ion_eff_mini)
+            tau_x(np.exp(ln_nu), zp, zpp[rows], x_e_ave, nion_of_z, ion_eff, N_b0, dtdz_fn,
+                  Y_He, nion_mini_of_z=curves, ion_eff_mini=ion_eff_mini)
             - 1.0
         )
 
-    lo = np.log(physconst.nu_ion_HeI)
-    if f(lo) < 0:
-        return physconst.nu_ion_HeI
-    hi = np.log(1e6 * physconst.eV_to_Hz)
-    if f(hi) > 0:
-        return np.exp(hi)
+    # f(lo) < 0: nu_HeI already; f(hi) > 0: the top of the bracket
+    rows = np.arange(len(zpp))
+    rows = rows[~(f(rows, lo[rows]) < 0)]
+    at_top = f(rows, hi[rows]) > 0
+    out[rows[at_top]] = np.exp(hi[rows[at_top]])
+    rows = rows[~at_top]
+    bisected = rows
     for _ in range(40):
-        mid = 0.5 * (lo + hi)
-        if f(mid) > 0:
-            lo = mid
-        else:
-            hi = mid
-        if hi - lo < 0.02:
+        if not len(rows):
             break
-    return np.exp(0.5 * (lo + hi))
+        mid = 0.5 * (lo[rows] + hi[rows])
+        up = f(rows, mid) > 0
+        lo[rows] = np.where(up, mid, lo[rows])
+        hi[rows] = np.where(up, hi[rows], mid)
+        rows = rows[~(hi[rows] - lo[rows] < 0.02)]
+    out[bisected] = np.exp(0.5 * (lo[bisected] + hi[bisected]))
+    return out[0] if scalar else out
 
 
 # ---------------------------------------------------------------------------

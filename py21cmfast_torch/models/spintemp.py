@@ -890,7 +890,7 @@ def ts_host_tables(redshift, inputs, pf_redshift, prev_redshift, x_e_ave, ave_mc
     use_minihalos = bool(ao.USE_MINI_HALOS) and not lagrangian
     mini_terms = use_minihalos or (lagrangian and lagr_mini)
     mcrit_clip = 0.0
-    nion_mini_shells = [None] * n_r
+    nion_mini_shells = None  # or one curve a shell
     ion_eff_mini = 0.0
     if use_minihalos:
         mcrit_clip = float(np.log10(hmf.lyman_werner_threshold(redshift, 0.0, 0.0, ap)))
@@ -902,6 +902,7 @@ def ts_host_tables(redshift, inputs, pf_redshift, prev_redshift, x_e_ave, ave_mc
             shell_mcrit = np.full(n_r, max(ave_mcrit, mcrit_clip))
         zg_mini = np.linspace(redshift * 0.999, ladder.zpp[-1] * 1.001, 48)
         curves = {}
+        nion_mini_shells = [None] * n_r
         for i in range(n_r):
             key = round(float(shell_mcrit[i]), 3)
             if key not in curves:
@@ -923,24 +924,22 @@ def ts_host_tables(redshift, inputs, pf_redshift, prev_redshift, x_e_ave, ave_mc
     zero_fcoll_in_tau = so.HII_DIM == 1 and x_e_ave < so.MIN_XE_FOR_FCOLL_IN_TAUX
     nion_of_z_tau = (lambda z: np.zeros_like(np.asarray(z, np.float64))) \
         if zero_fcoll_in_tau else nion_of_z
+    # the host work that waits on <x_e>, so no prefetch can take it: one
+    # batched call each for the whole ladder
     nu_th = ap.NU_X_THRESH * physconst.eV_to_Hz
-    lower_limits = np.array(
-        [
-            max(
-                heating.nu_tau_one(
-                    redshift, ladder.zpp[i], x_e_ave, nion_of_z_tau, ion_eff,
-                    cosmo.N_b0, cosmo.dtdz, cosmo.Y_He,
-                    nion_mini_of_z=None if zero_fcoll_in_tau else nion_mini_shells[i],
-                    ion_eff_mini=0.0 if zero_fcoll_in_tau else ion_eff_mini,
-                ),
-                nu_th,
-            )
-            for i in range(n_r)
-        ]
-    )
-    tbl_heat, tbl_ion, tbl_lya = heating.freq_integrals(
-        redshift, heating.X_INT_XHII, lower_limits, ap, cosmo.Y_He
-    )
+    with tracing.span("ts.xe_tables"):
+        lower_limits = np.maximum(
+            heating.nu_tau_one(
+                redshift, ladder.zpp, x_e_ave, nion_of_z_tau, ion_eff,
+                cosmo.N_b0, cosmo.dtdz, cosmo.Y_He,
+                nion_mini_of_z=None if zero_fcoll_in_tau else nion_mini_shells,
+                ion_eff_mini=0.0 if zero_fcoll_in_tau else ion_eff_mini,
+            ),
+            nu_th,
+        )
+        tbl_heat, tbl_ion, tbl_lya = heating.freq_integrals(
+            redshift, heating.X_INT_XHII, lower_limits, ap, cosmo.Y_He
+        )
 
     # conditional SFRD tables
     use_cheby = False

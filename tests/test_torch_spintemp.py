@@ -3,7 +3,6 @@
 the CPU.
 
 One JAX Ts chain runs down the golden "ts" ladder (27.08 -> 10.5, 5 nodes)
-import _torch_threads  # noqa: F401
 from a numpy Gaussian density; the arguments and results of the JAX package's
 `_ts_shell_scan` and `_ts_cell_update` are recorded at every node, so each of
 the port's functions is held to the JAX one on identical inputs:
@@ -19,6 +18,7 @@ the port's functions is held to the JAX one on identical inputs:
 
 import inspect
 
+import _torch_threads  # noqa: F401
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -26,6 +26,7 @@ import torch
 from test_torch_ics import jax_inputs, numpy_grf, port_inputs
 
 from py21cmfast_torch import interop, tracing
+from py21cmfast_torch.cosmology.constants import physconst
 from py21cmfast_torch.outputs import XraySourceBox
 from py21cmfast_torch.models import heating as theat
 from py21cmfast_torch.models import lya_heating as tlya
@@ -202,6 +203,90 @@ def test_heating_tables_match_jax(chain):
     ref_l, got_l = jlya.get_lya_heat_tables(), tlya.get_lya_heat_tables()
     np.testing.assert_allclose(got_l.de_cont, ref_l.de_cont, rtol=1e-12)
     np.testing.assert_allclose(got_l.de_inj, ref_l.de_inj, rtol=1e-12)
+
+
+def _nion(z):
+    return 1e-3 * np.exp(-0.3 * np.asarray(z))
+
+
+def _flat(value):
+    return lambda z: np.full(np.shape(z), value)
+
+
+# <x_e>-bound host tables of a whole ladder: (<x_e>, nion_of_z, the minihalo
+# curves as one list of per-shell curves or None, their efficiency).
+# "early-exits" puts the 3 nearest shells under a curve that floors the
+# filling factor (tau_X at nu_HeI < 1: nu_HeI) and the 7 farthest under one
+# that drives it far past any physical value (tau_X at 1 MeV > 1: 1 MeV).
+XE_CASES = {
+    "eulerian": (None, _nion, None, 0.0),
+    "one-minihalo-curve": (None, _nion, "one", 5.0),
+    "per-shell-curves": (None, _nion, "three", 5.0),
+    "zero-fcoll-in-tau": (None, lambda z: np.zeros_like(np.asarray(z, np.float64)), None, 0.0),
+    "xe-above-0.9999": (0.99995, _nion, None, 0.0),
+    "early-exits": (None, _nion, "exits", 1.0),
+    "nu-lo-above-nu-max": (None, _nion, None, 0.0),
+    "nodes-below-the-table": (None, _nion, None, 0.0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(XE_CASES))
+def test_ladder_horizons_and_frequency_integrals_match_jax_per_shell(chain, case):
+    """The port's one batched call for a real 40-shell dawn ladder against the
+    JAX package's nu_tau_one shell by shell and its freq_integrals: relative
+    1e-12."""
+    nd, jinp, tinp = chain["nodes"][1], chain["jinp"], chain["tinp"]
+    zp, ap = nd["z"], tinp.astro_params
+    zpp = tsp.setup_z_edges(zp, tinp).zpp
+    n_r = len(zpp)
+    assert n_r == 40
+    x_e, nion, curves, eff_mini = XE_CASES[case]
+    if x_e is None:
+        x_e = float(jnp.mean(nd["prev"].xray_ionised_fraction))
+    per_shell = {
+        None: [None] * n_r,
+        "one": [_flat(0.08)] * n_r,
+        "three": [[_flat(0.1), lambda z: 0.15 * np.exp(-0.3 * (np.asarray(z) - 20)), _flat(0.0)][i % 3]
+                  for i in range(n_r)],
+        "exits": [_flat(10.0)] * 3 + [_flat(0.0)] * (n_r - 10) + [_flat(-1e22)] * 7,
+    }[curves]
+    cj, ct = jinp.cosmology, tinp.cosmology
+    ref = np.array([
+        jheat.nu_tau_one(zp, zpp[i], x_e, nion, 30.0, cj.N_b0, cj.dtdz, cj.Y_He,
+                         nion_mini_of_z=per_shell[i], ion_eff_mini=eff_mini)
+        for i in range(n_r)
+    ])
+    got = theat.nu_tau_one(zp, zpp, x_e, nion, 30.0, ct.N_b0, ct.dtdz, ct.Y_He,
+                           nion_mini_of_z=None if curves is None else per_shell,
+                           ion_eff_mini=eff_mini)
+    np.testing.assert_allclose(got, ref, rtol=1e-12)
+    if curves in ("one", "three"):  # each curve moves its shells' horizons
+        plain = theat.nu_tau_one(zp, zpp, x_e, nion, 30.0, ct.N_b0, ct.dtdz, ct.Y_He)
+        moved = np.ones(n_r, bool) if curves == "one" else np.arange(n_r) % 3 != 2
+        assert (got != plain)[moved].all() and (got == plain)[~moved].all()
+    at_floor = got == physconst.nu_ion_HeI
+    at_top = got == np.exp(np.log(1e6 * physconst.eV_to_Hz))
+    if case == "xe-above-0.9999":
+        assert at_floor.all()
+    elif case == "early-exits":
+        assert at_floor[:3].all() and at_top[-7:].all() and not (at_floor | at_top)[3:-7].any()
+    else:
+        assert not (at_floor | at_top).any()
+
+    nu_th = ap.NU_X_THRESH * physconst.eV_to_Hz
+    lims = np.maximum(got, nu_th)
+    if case == "nu-lo-above-nu-max":
+        lims[[5, 17]] = ap.NU_X_MAX * physconst.eV_to_Hz * np.array([1.0, 1.5])
+    if case == "nodes-below-the-table":  # HI's electrons start under 10 eV
+        lims[[0, 9]] = physconst.nu_ion_HI * np.array([1.2, 1.5])
+    tabs = [
+        heat.freq_integrals(zp, heat.X_INT_XHII, lims, inp.astro_params, 0.245)
+        for heat, inp in ((theat, tinp), (jheat, jinp))
+    ]
+    for g, r in zip(*tabs):
+        np.testing.assert_allclose(g, r, rtol=1e-12)
+    if case == "nu-lo-above-nu-max":
+        assert not tabs[0][0][[5, 17]].any() and tabs[0][0][[4, 16]].all()
 
 
 HOST_TO_JAX = dict(

@@ -29,6 +29,7 @@ from py21cmfast_torch.models import spintemp as tsp
 PARENTS = {
     "node": None, "perturb": "node", "ts": "node", "ionize": "node", "tb": "node",
     "scroll.validate": "node", "ts.host_tables": "ts", "ts.sfrd_wait": "ts.host_tables",
+    "ts.xe_tables": "ts.host_tables",
     "ts.upload": "ts", "ts.scan": "ts", "ionize.host_tables": "ionize", "lc.slices": None,
     "lc.schedule": "lc.slices", "lc.finalize": None,
 }
@@ -133,6 +134,21 @@ def test_ts_uploads_are_the_shells_tables(cone):
         assert tables >= len(step["shells"]) * 3
         want = tables + 1 + 3 + 2 + len(step["h"]["kappa_knots"])
         assert nodes[z]["counters"]["h2d.uploads"]["ts"] == want
+
+
+def test_each_ts_step_books_its_xe_tables_once(cone):
+    """The <x_e>-bound tables of a full Ts step (its tau_X = 1 horizons and
+    frequency integrals) run as one batched call for the whole ladder: one
+    `ts.xe_tables` a node with a Ts step, inside its host tables."""
+    steps = cone["seen"]["ts"]
+    for n in cone["run"]["nodes"]:
+        booked = n["spans"].get("ts.xe_tables")
+        if n["z"] not in steps:
+            assert booked is None
+            continue
+        count, seconds, parent = booked
+        assert count == 1 and parent == "ts.host_tables"
+        assert 0 < seconds <= n["spans"]["ts.host_tables"][1]
 
 
 def test_prefetch_build_and_wait_booked(cone):
