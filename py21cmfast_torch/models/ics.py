@@ -19,9 +19,12 @@ grids fit, and the plain path computes the same fields.
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
+from .. import tracing
 from .._device import resolve_device
 from ..cosmology.constants import physconst
 from ..inputs import InputParameters
@@ -199,6 +202,17 @@ def compute_vcb_box(inputs: InputParameters, d_k) -> torch.Tensor:
     return torch.sqrt(speed_sq)
 
 
+@contextlib.contextmanager
+def _stage(name, dev):
+    """A span of the ICs that closes once the card has finished its work, so
+    that it reads the stage's device time: the ICs run once a chain, and the
+    wait costs nothing measurable."""
+    with tracing.span(name):
+        yield
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+
 def compute_initial_conditions(
     inputs: InputParameters,
     *,
@@ -207,8 +221,21 @@ def compute_initial_conditions(
 ) -> InitialConditions:
     """Generate ICs.  `initial_density` optionally injects a user hires field
     in place of GRF sampling (reference single_field.py:94-113); otherwise the
-    white noise comes from a `torch.Generator` seeded with `random_seed`."""
+    white noise comes from a `torch.Generator` seeded with `random_seed`.
+
+    Books the span `ics` with the children `ics.sample`, `ics.lowres` and
+    `ics.2lpt`, and on the card the counter `ics.peak_bytes`: the allocator's
+    peak at the ICs' end (never reset here, so a caller that resets it just
+    before reads the ICs' own peak)."""
     dev = resolve_device(device)
+    with _stage("ics", dev):
+        ics = _initial_conditions(inputs, initial_density, dev)
+        if dev.type == "cuda":
+            tracing.count("ics.peak_bytes", int(torch.cuda.max_memory_allocated(dev)))
+    return ics
+
+
+def _initial_conditions(inputs, initial_density, dev) -> InitialConditions:
     so = inputs.simulation_options
     mo = inputs.matter_options
     hi_shape = so.hires_shape
@@ -219,48 +246,51 @@ def compute_initial_conditions(
     filter_lowres = so.dim != so.HII_DIM
     do_filter_vel = filter_lowres and pt_shape != hi_shape
 
-    if initial_density is not None:
-        hires_density = torch.as_tensor(
-            np.asarray(initial_density), dtype=torch.float32, device=dev
-        ).contiguous()
-        if tuple(hires_density.shape) != hi_shape:
-            raise ValueError(
-                f"initial_density has shape {tuple(hires_density.shape)}, expected {hi_shape}"
-            )
-        d_k = fft.rfft3(hires_density)
-    else:
-        ln_k, sqrtp = power_amplitude_table(inputs, dev)
-        gen = torch.Generator(device=dev).manual_seed(int(inputs.random_seed))
-        d_k = _sample_dk(gen, ln_k, sqrtp, hi_shape=hi_shape, box_lens=box_lens)
-        hires_density = fft.irfft3(d_k, hi_shape)
+    with _stage("ics.sample", dev):
+        if initial_density is not None:
+            hires_density = torch.as_tensor(
+                np.asarray(initial_density), dtype=torch.float32, device=dev
+            ).contiguous()
+            if tuple(hires_density.shape) != hi_shape:
+                raise ValueError(
+                    f"initial_density has shape {tuple(hires_density.shape)}, expected {hi_shape}"
+                )
+            d_k = fft.rfft3(hires_density)
+        else:
+            ln_k, sqrtp = power_amplitude_table(inputs, dev)
+            gen = torch.Generator(device=dev).manual_seed(int(inputs.random_seed))
+            d_k = _sample_dk(gen, ln_k, sqrtp, hi_shape=hi_shape, box_lens=box_lens)
+            hires_density = fft.irfft3(d_k, hi_shape)
 
-    lowres_density = _filtered_sample(
-        d_k, hi_shape=hi_shape, box_lens=box_lens, out_shape=lo_shape,
-        do_filter=filter_lowres,
-    )
-    vel = [
-        _gradient_field(
-            d_k, hi_shape=hi_shape, box_lens=box_lens, axis=ax,
-            out_shape=pt_shape, do_filter=do_filter_vel,
+    with _stage("ics.lowres", dev):
+        lowres_density = _filtered_sample(
+            d_k, hi_shape=hi_shape, box_lens=box_lens, out_shape=lo_shape,
+            do_filter=filter_lowres,
         )
-        for ax in range(3)
-    ]
+        vel = [
+            _gradient_field(
+                d_k, hi_shape=hi_shape, box_lens=box_lens, axis=ax,
+                out_shape=pt_shape, do_filter=do_filter_vel,
+            )
+            for ax in range(3)
+        ]
 
     vel_2lpt = (None, None, None)
     if mo.PERTURB_ALGORITHM == "2LPT":
-        trunc_shape = tuple(int(round(s * _2LPT_TRUNC_DIM / hi_shape[0])) for s in hi_shape)
-        use_trunc = (
-            int(np.prod(hi_shape)) >= _2LPT_MAX_INHBM_CELLS
-            and all(p <= c for p, c in zip(pt_shape, trunc_shape))
-            and all(c % p == 0 for p, c in zip(pt_shape, trunc_shape))
-        )
-        if use_trunc:
-            vel_2lpt = _compute_2lpt(
-                _truncate_dk(d_k, hi_shape=hi_shape, trunc_shape=trunc_shape),
-                trunc_shape, box_lens, pt_shape, do_filter_vel,
+        with _stage("ics.2lpt", dev):
+            trunc_shape = tuple(int(round(s * _2LPT_TRUNC_DIM / hi_shape[0])) for s in hi_shape)
+            use_trunc = (
+                int(np.prod(hi_shape)) >= _2LPT_MAX_INHBM_CELLS
+                and all(p <= c for p, c in zip(pt_shape, trunc_shape))
+                and all(c % p == 0 for p, c in zip(pt_shape, trunc_shape))
             )
-        else:
-            vel_2lpt = _compute_2lpt(d_k, hi_shape, box_lens, pt_shape, do_filter_vel)
+            if use_trunc:
+                vel_2lpt = _compute_2lpt(
+                    _truncate_dk(d_k, hi_shape=hi_shape, trunc_shape=trunc_shape),
+                    trunc_shape, box_lens, pt_shape, do_filter_vel,
+                )
+            else:
+                vel_2lpt = _compute_2lpt(d_k, hi_shape, box_lens, pt_shape, do_filter_vel)
 
     lowres_vcb = compute_vcb_box(inputs, d_k) if mo.V_CB_MODEL == "FLUCTS" else None
 

@@ -35,6 +35,10 @@ PARENTS = {
 }
 
 
+# what models/ics.py books for a 2LPT run, by parent
+ICS_PARENTS = {"ics": None, "ics.sample": "ics", "ics.lowres": "ics", "ics.2lpt": "ics"}
+
+
 def _inputs(z_min=9.0):
     return t21.InputParameters(random_seed=3).evolve_input_structs(
         HII_DIM=8, DIM=16, BOX_LEN=16.0, SOURCE_MODEL="E-INTEGRAL", ZPRIME_STEP_FACTOR=1.3,
@@ -94,8 +98,9 @@ def test_one_run_a_lightcone_with_a_node_a_redshift(cone):
     zs = [float(z) for z in cone["inputs"].node_redshifts]
     assert [n["index"] for n in run["nodes"]] == list(range(len(zs)))
     assert [n["z"] for n in run["nodes"]] == zs
-    # the finalization and the last node's NaN check are the run's own
-    assert set(run["spans"]) == {"lc.finalize", "scroll.validate"}
+    # the finalization, the last node's NaN check and the ICs the cone made
+    # itself are the run's own
+    assert set(run["spans"]) == {"lc.finalize", "scroll.validate", *ICS_PARENTS}
 
 
 @pytest.mark.parametrize("name", sorted(PARENTS))
@@ -292,3 +297,39 @@ def test_threads_booking_their_own_names_into_one_node_lose_nothing():
     assert node["counters"]["test.main_count"] == {"test.main": n_spans}
     for k in range(n_threads):
         assert node["spans"][f"test.thread{k}"][0] == n_spans
+
+
+@pytest.fixture(scope="module")
+def golden_ics():
+    """ICs at golden size outside any run, twice: from an empty recorder,
+    and again after `reset()`; what each booked into the totals."""
+    inputs = t21.InputParameters(random_seed=11).evolve_input_structs(
+        HII_DIM=24, DIM=72, BOX_LEN=36.0, PERTURB_ALGORITHM="2LPT")
+    out = []
+    for _ in range(2):
+        tracing.reset()
+        runs0 = len(tracing.runs())
+        ics = t21.compute_initial_conditions(inputs, device="cpu")
+        out.append((ics, tracing.totals(), len(tracing.runs()) - runs0, tracing.runs()))
+    return out
+
+
+def test_ics_book_their_stages_into_the_totals_alone(golden_ics):
+    for _, totals, new_runs, kept in golden_ics:
+        spans = totals["spans"]
+        assert {k: v[2] for k, v in spans.items()} == ICS_PARENTS
+        assert all(count == 1 and seconds > 0 for count, seconds, _ in spans.values())
+        assert tracing.self_seconds(spans, "ics") >= 0
+        assert new_runs == 0 and kept == []
+
+
+def test_ics_book_no_peak_counter_off_the_card(golden_ics):
+    for _, totals, _, _ in golden_ics:
+        assert "ics.peak_bytes" not in totals["counters"]
+
+
+def test_ics_fields_bit_equal_with_the_recorder_and_after_reset(golden_ics):
+    (first, *_), (second, *_) = golden_ics
+    for name in ("hires_density", "lowres_density", "vx", "vy", "vz",
+                 "vx_2LPT", "vy_2LPT", "vz_2LPT"):
+        assert torch.equal(getattr(first, name), getattr(second, name)), name
