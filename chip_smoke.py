@@ -140,6 +140,20 @@ Phases, in order; any failure raises and the script exits non-zero:
      its 92 nodes; bench_torch.py runs them all), launch counts zeroed just
      before and read just after (one deposit launch a node), a fully written
      finite cone and the peak memory.
+  19. (last) the spin temperature's fused shell kernels (csrc/ts_shell.cu) at
+     256^3 over the real 40-shell ladder of the latest template's z=25 Ts
+     step (its host tables; a lognormal density and an x_e across the
+     knots): the kernel path against the plain torch path on the card in
+     four cases (the Chebyshev fit, the table gather, CONST-ION-EFF, Lya
+     heating off; relative L2 of each accumulator <= 1e-5, two runs
+     bit-identical), then CUDA-event timings of the whole scan on both paths
+     and of the two kernels alone over the 40 shells against their byte
+     bound.  Its row of the kernels line gives the kernels' launches on
+     each main path of the phases before, each path's counts zeroed just
+     before it ran and read just after: two a shell the kernels took, on the
+     scroll, the headline, Z-PHOTONCONS, the command line and the faithful
+     lightcone, none on the simple, minihalo, fixed-halos, discrete and
+     sharded paths.
 The line before the last is a JSON object of kernel numbers; the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device it exits non-zero and
 prints no result.
@@ -181,6 +195,41 @@ def _recorded(kind, name):
     if kind == "spans":
         return booked[name][1] if name in booked else 0.0
     return sum(booked.get(name, {}).values())
+
+
+# the fused Ts shell kernels' launches on each main path, by path (phase
+# 19's row of the kernels line)
+TS_SHELL_BY_PATH = {}
+
+
+def _ts_shell_zero():
+    """Zero the Ts shell kernels' launch counts just before a main path runs;
+    returns the recorder's `ts.kernel_shells` so far."""
+    from py21cmfast_torch.ops import ts_shell
+
+    ts_shell.ts_shell_reduce.launches = ts_shell.ts_shell_accumulate.launches = 0
+    return _recorded("counters", "ts.kernel_shells")
+
+
+def _ts_shell_read(path, shells0, taken=None):
+    """Read the Ts shell kernels' launches just after a main path ran (zeroed
+    by `_ts_shell_zero`, which returned `shells0`) into TS_SHELL_BY_PATH:
+    two a shell the kernels took, one of each kernel; with `taken` the
+    path took the kernels (True: single-device Eulerian Ts without
+    minihalos) or the torch code (False).  Returns the launches."""
+    from py21cmfast_torch.ops import ts_shell
+
+    shells = _recorded("counters", "ts.kernel_shells") - shells0
+    reduce_n = ts_shell.ts_shell_reduce.launches
+    accumulate_n = ts_shell.ts_shell_accumulate.launches
+    if not reduce_n == accumulate_n == shells:
+        raise AssertionError(f"{path}: {reduce_n} ts_shell_reduce and {accumulate_n} "
+                             f"ts_shell_accumulate launches for {shells} kernel shells")
+    if taken is not None and (shells > 0) != taken:
+        raise AssertionError(f"{path}: {shells} shells took the Ts shell kernels, expected "
+                             f"{'some' if taken else 'none'}")
+    TS_SHELL_BY_PATH[path] = reduce_n + accumulate_n
+    return reduce_n + accumulate_n
 
 
 def _sync_time(fn):
@@ -237,7 +286,8 @@ def build_kernels():
         for i, line in enumerate(lines):
             # ptxas names the function, then its stack and spills, then registers
             # the R = 3 kernel of the headline and the R = 4 one of phase 18
-            if "Compiling entry function" in line and ("kernelILi3E" in line or "kernelILi4E" in line):
+            if "Compiling entry function" in line and (
+                    "kernelILi3E" in line or "kernelILi4E" in line or "ts_shell" in line):
                 print(f"[build] {name}: {line.split(chr(39))[1]}: "
                       + "; ".join(x.strip() for x in lines[i + 1:i + 4] if "bytes" in x or "registers" in x))
     _print_shared_atomic_opcodes()
@@ -676,8 +726,10 @@ def main_path_phase(kernels):
     torch.cuda.reset_peak_memory_stats()
     for w in wrappers.values():
         w.launches = 0
+    shells0 = _ts_shell_zero()
     coevals, seconds = _sync_time(lambda: p21.run_coeval(inputs, MAIN_REDSHIFTS))
     launches = {name: w.launches for name, w in wrappers.items()}
+    _ts_shell_read("simple", shells0, taken=False)
     print(f"[main] run_coeval({MAIN_TEMPLATE}, {MAIN_REDSHIFTS}) on the card: {seconds:.3f} s "
           f"(first call), launches {launches}, peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
@@ -812,6 +864,7 @@ def scroll_phase(kernels):
     torch.cuda.reset_peak_memory_stats()
     for w in wrappers.values():
         w.launches = 0
+    shells0 = _ts_shell_zero()
     spintemp.compute_spin_temperature = timed_ts
     seconds, means, samples, prev, ics = [], [], {}, None, None
     try:
@@ -843,6 +896,7 @@ def scroll_phase(kernels):
     finally:
         spintemp.compute_spin_temperature = compute_ts
     launches = {name: w.launches for name, w in wrappers.items()}
+    _ts_shell_read("scroll", shells0, taken=True)
     peak = torch.cuda.max_memory_allocated() / 2**30
 
     if len(seconds) != len(nodes):
@@ -1937,11 +1991,13 @@ def _counting_syncs(fn):
 
 
 def lightcone_phase(kernels, inputs, ics, ics_s, tag, path, sample_z, setup_launches=None,
-                    keep_tb_at=None, count_syncs_at=None):
+                    keep_tb_at=None, count_syncs_at=None, ts_kernels=None):
     """A full-size lightcone through generate_lightcone with dvdr and RSDs,
     from ICs computed before (as bench.py hands them in); launch counts zeroed
     just before and read just after (one deposit launch per node, and
-    `setup_launches()` more where the run's setup deposits too).  Then the
+    `setup_launches()` more where the run's setup deposits too; two Ts shell
+    kernel launches a shell the kernels took, which `ts_kernels` says they
+    do or do not).  Then the
     finalization's device-busy times and the stages of the nodes nearest each
     of `sample_z`, recomputed from the state the scroll handed them; that
     state is kept on the host meanwhile, so that it adds nothing to the run's
@@ -2011,6 +2067,7 @@ def lightcone_phase(kernels, inputs, ics, ics_s, tag, path, sample_z, setup_laun
     torch.cuda.reset_peak_memory_stats()
     for w in wrappers.values():
         w.launches = 0
+    shells0 = _ts_shell_zero()
     for name, attr in steps.items():
         setattr(rsds, attr, timed(name, originals[name]))
     xray_source.compute_xray_source_field = recorded_source
@@ -2072,6 +2129,7 @@ def lightcone_phase(kernels, inputs, ics, ics_s, tag, path, sample_z, setup_laun
         xray_source.compute_xray_source_field = source_field
         halos.perturb_halo_catalog = perturb_catalog
     launches = {name: w.launches for name, w in wrappers.items()}
+    _ts_shell_read(path, shells0, taken=ts_kernels)
     peak = torch.cuda.max_memory_allocated() / 2**30
     del prev, cv
 
@@ -2158,7 +2216,7 @@ def headline_phase(kernels, headline):
     stages of the node nearest z=8."""
     inputs, ics, ics_s = headline
     return lightcone_phase(kernels, inputs, ics, ics_s, "headline", "lightcone", (8.0,),
-                           keep_tb_at=8.0, count_syncs_at=8.0)
+                           keep_tb_at=8.0, count_syncs_at=8.0, ts_kernels=True)
 
 
 def minihalo_headline_phase(kernels):
@@ -2191,7 +2249,8 @@ def minihalo_headline_phase(kernels):
           f"{v.max().item():.4f}")
     if tuple(v.shape) != so.lowres_shape or not bool(torch.isfinite(v).all()) or not v.min().item() >= 0:
         raise AssertionError("the Munoz21 v_cb box is malformed")
-    lightcone_phase(kernels, inputs, ics, ics_s, "munoz21", "minihalo_lightcone", (SHORT_Z_END,))
+    lightcone_phase(kernels, inputs, ics, ics_s, "munoz21", "minihalo_lightcone", (SHORT_Z_END,),
+                    ts_kernels=False)
 
 
 def fixed_halos_headline_phase(kernels):
@@ -2207,7 +2266,8 @@ def fixed_halos_headline_phase(kernels):
         raise AssertionError(f"{FIXED_HALOS_TEMPLATE} does not use L-INTEGRAL sources")
     ics, ics_s = _sync_time(lambda: p21.compute_initial_conditions(inputs))
     torch.cuda.empty_cache()
-    lightcone_phase(kernels, inputs, ics, ics_s, "fixed-halos", "fixed_halos_lightcone", (SHORT_Z_END,))
+    lightcone_phase(kernels, inputs, ics, ics_s, "fixed-halos", "fixed_halos_lightcone", (SHORT_Z_END,),
+                    ts_kernels=False)
 
 
 # phase 12: the latest-discrete template at its 1.5 Mpc cell and DIM/HII_DIM = 3
@@ -2389,7 +2449,8 @@ def discrete_headline_phase(kernels):
     torch.cuda.empty_cache()
 
     with _timed_chain() as chain:
-        lightcone_phase(kernels, inputs, ics, ics_s, "latest-discrete", "discrete_lightcone", (8.0,))
+        lightcone_phase(kernels, inputs, ics, ics_s, "latest-discrete", "discrete_lightcone", (8.0,),
+                        ts_kernels=False)
     _print_chain("latest-discrete", chain)
 
     # the statistical gate on the lowest node's grid sample (the collapsed
@@ -2448,7 +2509,8 @@ def photoncons_headline_phase(kernels, headline, base):
     photoncons.calibrate_photon_cons = timed_calibration
     try:
         run = lightcone_phase(kernels, inputs, ics, headline[2], "z-photoncons",
-                              "photoncons_lightcone", (), setup_launches=lambda: len(rec["z_cal"]))
+                              "photoncons_lightcone", (), setup_launches=lambda: len(rec["z_cal"]),
+                              ts_kernels=True)
     finally:
         coeval.setup_photon_cons, photoncons.calibrate_photon_cons = setup, calibrate
     z_cal = rec["z_cal"]
@@ -2545,6 +2607,7 @@ def cli_phase(kernels, base):
     out = io.StringIO()
     for w in wrappers.values():
         w.launches = 0
+    shells0 = _ts_shell_zero()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
@@ -2552,6 +2615,7 @@ def cli_phase(kernels, base):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: w.launches for name, w in wrappers.items()}
+    _ts_shell_read("cli_lightcone", shells0, taken=True)
     peak = torch.cuda.max_memory_allocated() / 2**30
     line = [ln for ln in out.getvalue().splitlines() if ln.startswith("lightcone:")][-1]
     nodes = lc.node_redshifts
@@ -2696,6 +2760,7 @@ def samplers_headline_phase(kernels):
 
         halos._binary_split_kernel = counted
         deposit.cic_deposit_swept.launches = 0
+        shells0 = _ts_shell_zero()
         torch.cuda.reset_peak_memory_stats()
         seconds = []
         try:
@@ -2710,6 +2775,7 @@ def samplers_headline_phase(kernels):
         finally:
             halos._binary_split_kernel = kernel
         launches = deposit.cic_deposit_swept.launches
+        _ts_shell_read(f"{tag}_coeval", shells0, taken=False)
         peak = torch.cuda.max_memory_allocated() / 2**30
         if len(seconds) != len(nodes) or abs(last.redshift - SAMPLERS_Z_END) > 1e-6:
             raise AssertionError(f"{method}: {len(seconds)} nodes yielded of {len(nodes)}")
@@ -2999,7 +3065,11 @@ def _rank_report(mesh, walls, wall, launches):
     process runs one job)."""
     import torch
 
+    from py21cmfast_torch.ops import ts_shell
+
     return dict(rank=mesh.rank, wall=wall, parts=dict(walls), launches=launches,
+                ts_shell_launches=(ts_shell.ts_shell_reduce.launches
+                                   + ts_shell.ts_shell_accumulate.launches),
                 collective_s=_recorded("spans", "mesh.collective"),
                 collective_calls=_recorded("counters", "mesh.calls"),
                 collective_gib=_recorded("counters", "mesh.bytes") / 2**30,
@@ -3024,6 +3094,7 @@ def _sharded_headline_job(mesh):
         **SHARDED_HEADLINE)
     mesh.timed = True
     deposit.cic_deposit_swept.launches = 0
+    _ts_shell_zero()
     torch.cuda.reset_peak_memory_stats(mesh.device)
     walls = {}
     with _timed_parts(walls):
@@ -3146,6 +3217,7 @@ def _sharded_lightcone_job(mesh):
         **SHARDED_LC).with_logspaced_redshifts(SHARDED_LC_Z_END)
     mesh.timed = True
     deposit.cic_deposit_swept.launches = 0
+    _ts_shell_zero()
     torch.cuda.reset_peak_memory_stats(mesh.device)
     nodes = []
     scroll = driver.run_sharded_coeval
@@ -3228,6 +3300,7 @@ def _sharded_discrete_job(mesh):
     so = inputs.simulation_options
     mesh.timed = True
     deposit.cic_deposit_swept.launches = 0
+    _ts_shell_zero()
     torch.cuda.reset_peak_memory_stats(mesh.device)
     sample, painted = {}, {}
     tables, sampler, paint = halos.grid_sampler_tables, halos.sample_halo_grid, \
@@ -3419,9 +3492,11 @@ def sharded_phase(kernels):
     try:
         mesh = make_mesh(1)
         deposit.cic_deposit_swept.launches = 0
+        shells0 = _ts_shell_zero()
         calls0 = _recorded("counters", "mesh.calls")
         (out,), wall = _sync_time(lambda: run_sharded_coeval(inputs, [8.0], mesh=mesh))
         launches = deposit.cic_deposit_swept.launches
+        _ts_shell_read("sharded_simple", shells0, taken=False)
         print(f"[sharded-simple] run_sharded_coeval({MAIN_TEMPLATE}, [8.0]) over {mesh}: "
               f"{wall:.3f} s (first call), {_recorded('counters', 'mesh.calls') - calls0} "
               f"collectives, deposit kernel "
@@ -3443,9 +3518,11 @@ def sharded_phase(kernels):
                      ("sharded-discrete", "_sharded_discrete_job")):
         reports = _run_sharded(tag, job)
         paths[tag.replace("-", "_")] = sum(r["launches"] for r in reports)
+        TS_SHELL_BY_PATH[tag.replace("-", "_")] = sum(r["ts_shell_launches"] for r in reports)
     if torch.cuda.device_count() >= 2:
         reports = _run_sharded("sharded-headline-nccl", "_sharded_headline_job", backend="nccl")
         paths["sharded_headline_nccl"] = sum(r["launches"] for r in reports)
+        TS_SHELL_BY_PATH["sharded_headline_nccl"] = sum(r["ts_shell_launches"] for r in reports)
     else:
         print(f"[sharded-headline-nccl] skipped: {torch.cuda.device_count()} CUDA device on this "
               "host, and NCCL takes one card a rank (17a ran NCCL with one rank)")
@@ -3454,6 +3531,9 @@ def sharded_phase(kernels):
         k["launches"] = sum(k["launches_by_path"].values())
     if any(paths.values()):
         raise AssertionError(f"a sharded path launched the deposit kernel: {paths}")
+    sharded_ts = {k: v for k, v in TS_SHELL_BY_PATH.items() if k in paths}
+    if any(sharded_ts.values()):
+        raise AssertionError(f"a sharded path launched the Ts shell kernels: {sharded_ts}")
     print(f"[sharded] phase 17 in {time.perf_counter() - t_phase:.1f} s; deposit kernel launches "
           f"by sharded path {paths}")
 
@@ -3500,9 +3580,11 @@ def faithful_phase(kernels):
 
     lcr, written = _tracked_lightconer(inputs)
     deposit.cic_deposit_swept.launches = 0
+    shells0 = _ts_shell_zero()
     run = bench_torch.run_full_lightcone(256, FAITHFUL_DIM, HEADLINE_SEED, ladder=FAITHFUL_LADDER,
                                          lightconer=lcr)
     launches = deposit.cic_deposit_swept.launches
+    _ts_shell_read("faithful_lightcone", shells0, taken=True)
     lc, n = run.pop("lightcone"), len(inputs.node_redshifts)
     if run["n_nodes"] != n or launches != n:
         raise AssertionError(f"faithful lightcone: {run['n_nodes']} nodes of {n}, {launches} "
@@ -3538,6 +3620,137 @@ def faithful_phase(kernels):
         **row,
         "library_ms": None,  # no single PyTorch call computes a CIC deposit
     }
+
+
+# phase 19: the fused Ts shell kernels at the benchmark's box, the latest
+# template's ladder at z=25; the cases of tests/test_torch_ts_shell.py
+TS_SHELL_N = 256
+TS_SHELL_CASES = {
+    "chebyshev": ("latest", {}, False),
+    "gather": ("latest", {}, True),
+    "const-zeta": ("const-zeta", {}, False),
+    "no-lya-heating": ("latest", dict(USE_LYA_HEATING=False), False),
+}
+# bytes a cell a shell: delta0 read by both kernels, x_e read, each
+# accumulator read and written
+TS_SHELL_BYTES = {6: 4 + 8 + 48, 4: 4 + 8 + 32}
+
+
+def ts_shell_phase():
+    """Phase 19: the fused Ts shell kernels against the plain torch path at
+    256^3 over the real 40-shell ladder, in four cases, then the timings of
+    the whole scan on both paths and of the two kernels alone against their
+    byte bound.  Returns the kernels line's row, with the launches each
+    main path of the phases before made (TS_SHELL_BY_PATH)."""
+    import torch
+
+    import py21cmfast_torch as p21
+    from py21cmfast_torch.models import heating
+    from py21cmfast_torch.models import spintemp as tsp
+    from py21cmfast_torch.ops import filters, grids, ts_shell
+
+    n, dev = TS_SHELL_N, torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    dens = torch.exp(torch.randn((n,) * 3, generator=gen, device=dev) * 0.4 - 0.08) - 1.0
+    xe = 10.0 ** (torch.rand((n,) * 3, generator=gen, device=dev) * 3.5 - 4.0)
+    row, worst_of_cases = None, 0.0
+    for case, (template, over, gather) in TS_SHELL_CASES.items():
+        inputs = p21.InputParameters.from_template(template, random_seed=SEED).evolve_input_structs(
+            **over)
+        fit = tsp._fit_log_cheby
+        if gather:
+            tsp._fit_log_cheby = lambda t, c: (*fit(t, c)[:2], False)
+        try:
+            h = tsp.ts_host_tables(25.0, inputs, 25.0, 25.5, 2e-4)
+        finally:
+            tsp._fit_log_cheby = fit
+        pack = tsp.packed_shells(h, dev)
+        shells = tsp.shells_from_tables(h, dev)
+        kw = dict(shape=(n,) * 3, box_lens=(inputs.simulation_options.box_len,) * 3,
+                  heat_filter=inputs.astro_options.heat_filter_int, use_xray_heat=True,
+                  use_lya_heat=h["use_lya_heat"], use_cheby=h["use_cheby"],
+                  const_model=h["const_model"])
+        args = (float(np.float32(h["consts"]["inv_growth_pf"])), float(np.float32(h["fstar10"])))
+
+        def fused():
+            return tsp._ts_shell_scan(dens, xe, pack, *args, **kw)
+
+        def plain():
+            return tsp._ts_shell_scan(dens, xe, shells, *args, **kw)
+
+        got, again, ref = fused(), fused(), plain()
+        names = tsp._accumulator_names(True, h["use_lya_heat"])
+        errs = {}
+        for name, g, a, r in zip(names, got, again, ref):
+            if not torch.equal(g, a):
+                raise AssertionError(f"[ts-shell] {case} {name}: two runs differ")
+            errs[name] = float(torch.linalg.vector_norm((g - r).double())
+                               / torch.linalg.vector_norm(r.double()))
+        worst = max(errs.values())
+        worst_of_cases = max(worst_of_cases, worst)
+        print(f"[ts-shell] {case}: {len(pack)} shells at {n}^3, kernels vs plain relative L2 "
+              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()) + "; two runs bit-identical")
+        if not worst <= 1e-5:
+            raise AssertionError(f"[ts-shell] {case}: relative L2 {worst:.3e} > 1e-5")
+        del got, again, ref
+        if case != "chebyshev":
+            continue
+
+        # the whole scan on both paths, in turns on this card
+        fused_ms = _event_median_ms(fused, 5)
+        plain_ms = _event_median_ms(plain, 3)
+        fused_again_ms = _event_median_ms(fused, 5)
+        # the two kernels alone over the ladder, each shell's filtered field
+        # made beforehand
+        d_k = torch.fft.rfftn(dens * args[0], dim=(0, 1, 2))
+        kmag = grids.kmag_grid((n,) * 3, kw["box_lens"], dev)
+        deltas = [filters.filter_kbox(d_k, kmag, kw["heat_filter"], c.R) if filtered else d_k
+                  for c, filtered in zip(pack.consts, pack.do_filter)]
+        deltas = [torch.fft.irfftn(d, s=(n,) * 3, dim=(0, 1, 2)) for d in deltas]
+        del d_k, kmag
+        accs = {k: torch.zeros_like(dens) for k in names}
+        partials = ts_shell.partials_buffer(dens)
+        m = ts_shell.mode(h["use_cheby"], h["const_model"])
+        step = ts_shell.StepConsts(*args, tuple(heating.X_INT_XHII))
+
+        def kernels_only():
+            for i, d0 in enumerate(deltas):
+                ts_shell.ts_shell_reduce(d0, step, pack.consts, i, m, None, partials)
+                ts_shell.ts_shell_accumulate(d0, xe, accs, step, pack.consts, i, m, None,
+                                             partials, use_xray_heat=True,
+                                             use_lya_heat=h["use_lya_heat"])
+
+        kernels_ms = _event_median_ms(kernels_only, 5)
+        n_bytes = TS_SHELL_BYTES[len(names)] * dens.numel() * len(pack)
+        bound_ms = 1e3 * n_bytes / PEAK_BYTES_PER_S
+        print(f"[ts-shell] latest z=25 Ts step at {n}^3, {len(pack)} shells: whole scan fused "
+              f"{fused_ms:.3f} and {fused_again_ms:.3f} ms, plain {plain_ms:.3f} ms (CUDA events, "
+              f"medians of 5, 3, 5); the two kernels alone {kernels_ms:.3f} ms over the "
+              f"{len(pack)} shells ({2 * len(pack)} launches), bound {bound_ms:.3f} ms "
+              f"({n_bytes / 1e9:.3f} GB at {PEAK_BYTES_PER_S / 1e12:.2f} TB/s), "
+              f"{100 * bound_ms / kernels_ms:.1f}% of it")
+        del deltas, accs
+        row = {
+            "name": "ts_shell_reduce+ts_shell_accumulate",
+            "shape": f"{n}^3 x {len(pack)} shells",
+            "route": "cuda",
+            "source": "py21cmfast_torch/csrc/ts_shell.cu",
+            "replaces": None,  # the JAX package's _ts_shell_scan is XLA
+            "launches": sum(TS_SHELL_BY_PATH.values()),
+            "launches_by_path": dict(TS_SHELL_BY_PATH),
+            "ms": kernels_ms,
+            "kernel_ms": kernels_ms,
+            "scan_fused_ms": min(fused_ms, fused_again_ms),
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": "bytes",
+            "library_ms": None,  # no single PyTorch call computes the chain
+        }
+    row["max_rel_l2"] = worst_of_cases  # of the four cases
+    torch.cuda.empty_cache()
+    print(f"[ts-shell] launches of the two kernels by main path, each read just after its run: "
+          f"{TS_SHELL_BY_PATH}")
+    return row
 
 
 def main():
@@ -3602,6 +3815,8 @@ def main():
         torch.cuda.empty_cache()
         kernels.append(faithful_phase(kernels))
         done("phase 18")
+        kernels.append(ts_shell_phase())
+        done("phase 19")
     finally:
         if cpu_global[0].is_alive():
             cpu_global[0].terminate()

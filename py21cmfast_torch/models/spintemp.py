@@ -42,7 +42,7 @@ from .._device import resolve_device, to_device
 from ..cosmology.constants import FRACT_FLOAT_ERR, physconst
 from ..cosmology.recombination import RecombinationHistory
 from ..inputs import InputParameters
-from ..ops import filters
+from ..ops import filters, ts_shell
 from ..ops.gridops import SINGLE, for_mesh
 from ..outputs import PerturbedField, TsBox
 from . import heating, hmf, lya_heating
@@ -388,7 +388,25 @@ def _ts_shell_scan(
     multiple-scattering window, the straight-line `sfr_lw` and `sfr_mini_lw`;
     the densities are then not read.  `gops` takes the FFTs, |k| and the
     shell means (ops/gridops.py; on a mesh the grids are x-slabs).
-    Returns the accumulators named by `_accumulator_names`."""
+    Returns the accumulators named by `_accumulator_names`.
+
+    `shells` as the `ShellPack` of `packed_shells` runs the kernels of
+    ops/ts_shell.py (`_ts_shell_scan_kernels`), which take single-device
+    Eulerian sources without minihalos on CUDA tensors
+    (`compute_spin_temperature` chooses by `ts_shell.takes_kernels`); the
+    list of `shells_from_tables` runs the torch code below, the kernels'
+    plain version.  The counter `ts.kernel_shells` books the shells the
+    kernels took (nothing on the torch path)."""
+    if isinstance(shells, ts_shell.ShellPack):
+        if source is not None or mcrit_box is not None or gops.sharded:
+            raise ValueError("the Ts shell kernels take single-device Eulerian sources without "
+                             "minihalos: pass shells_from_tables(h, device)")
+        accs = _ts_shell_scan_kernels(
+            density_pf, prev_xe, shells, inv_growth_pf, fstar10, shape=shape, box_lens=box_lens,
+            heat_filter=heat_filter, use_xray_heat=use_xray_heat, use_lya_heat=use_lya_heat,
+            use_cheby=use_cheby, const_model=const_model, gops=gops)
+        tracing.count("ts.kernel_shells", len(shells))
+        return accs
     lagrangian = source is not None
     use_minihalos = mcrit_box is not None
     use_mini_terms = use_minihalos or (lagrangian and source.get("sfr_mini") is not None)
@@ -453,6 +471,35 @@ def _ts_shell_scan(
             acc["dstarlya"] += sfr_term_mini * sh["p_star_mini"]
             acc["dstarlw"] += sfr_term_lw * sh["p_lw"]
             acc["dstarlw"] += sfr_term_mini_lw * sh["p_lw_mini"]
+    return tuple(acc[n] for n in names)
+
+
+def _ts_shell_scan_kernels(density_pf, prev_xe, pack, inv_growth_pf, fstar10, *, shape,
+                           box_lens, heat_filter, use_xray_heat, use_lya_heat, use_cheby,
+                           const_model, gops):
+    """`_ts_shell_scan` for single-device Eulerian sources without minihalos
+    on the card: each shell's k-space window and inverse FFT in torch, then
+    its two kernels (ops/ts_shell.py), which compute `_eulerian_shell_terms`
+    and the accumulate per cell without writing any intermediate grid."""
+    m = ts_shell.mode(use_cheby, const_model)
+    step = ts_shell.StepConsts(inv_growth_pf, fstar10, tuple(heating.X_INT_XHII))
+    kmag = gops.kmag(shape, box_lens, density_pf.device)
+    d_k = gops.rfft3(density_pf * inv_growth_pf)
+    names = _accumulator_names(use_xray_heat, use_lya_heat)
+    acc = {n: torch.zeros(prev_xe.shape, dtype=torch.float32, device=prev_xe.device)
+           for n in names}
+    partials = ts_shell.partials_buffer(prev_xe)
+    # the mean of CONST-ION-EFF is taken of the fcoll table, its SFR of the
+    # -dfcoll/dz one
+    mean_table = pack.fc if m == ts_shell.MODE_CONST else pack.sfrd
+    for i in range(len(pack)):
+        d_r = (filters.filter_kbox(d_k, kmag, heat_filter, pack.consts[i].R)
+               if pack.do_filter[i] else d_k)
+        delta0 = gops.irfft3(d_r, shape)
+        ts_shell.ts_shell_reduce(delta0, step, pack.consts, i, m, mean_table, partials)
+        ts_shell.ts_shell_accumulate(delta0, prev_xe, acc, step, pack.consts, i, m, pack.sfrd,
+                                     partials, use_xray_heat=use_xray_heat,
+                                     use_lya_heat=use_lya_heat)
     return tuple(acc[n] for n in names)
 
 
@@ -1235,6 +1282,32 @@ def shells_from_tables(h, device):
     return shells
 
 
+def packed_shells(h, device):
+    """The kernels' form of `shells_from_tables` (ops/ts_shell.ShellPack):
+    every shell's scalars and tables in one ctypes array of ShellConsts,
+    rounded to float32 as `shells_from_tables` rounds them, and under the
+    gather path the stacked SFRD tables (with the CONST-ION-EFF fcoll
+    tables) in one upload.  The step's own constants are the scan's
+    arguments."""
+    n = len(h["filter_R"])
+    rows = np.column_stack([
+        h["filter_R"], h["growth"], h["z_edge_factor"], h["xray_r_factor"], h["d_lo"],
+        h["d_hi"], h["sfrd_caps"], h["mean_sfrd"],
+        h["starlya_pref"], h["lya_cont_pref"], h["lya_inj_pref"],
+        h["sfrd_cheby"], h["sfrd_edge"], h["tbl_heat"], h["tbl_ion"], h["tbl_lya"],
+    ]).astype(np.float32)
+    consts = (ts_shell.ShellConsts * n).from_buffer_copy(rows.tobytes())
+    sfrd = fc = None
+    m = ts_shell.mode(h["use_cheby"], h["const_model"])
+    if m == ts_shell.MODE_GATHER:
+        sfrd = to_device(np.asarray(h["sfrd_tables"], np.float32), device)
+    elif m == ts_shell.MODE_CONST:
+        sfrd, fc = to_device(
+            np.stack([h["sfrd_tables"], h["sfrd_tables_fc"]]).astype(np.float32), device)
+    return ts_shell.ShellPack(consts=consts, do_filter=tuple(bool(v) for v in h["do_filter"]),
+                              sfrd=sfrd, fc=fc)
+
+
 def compute_spin_temperature(
     redshift: float,
     inputs: InputParameters,
@@ -1319,8 +1392,10 @@ def compute_spin_temperature(
     if mcrit_box is not None:
         mini = dict(mcrit_box=mcrit_box, mcrit_clip=float(_f32(h["mcrit_clip"])),
                     fstar7=float(_f32(h["fstar7"])), lx_ratio=float(_f32(h["lx_ratio"])))
+    kernels = ts_shell.takes_kernels(dev.type == "cuda", not lagrangian, mcrit_box is not None,
+                                     gops.sharded)
     with tracing.span("ts.upload"):
-        shells = shells_from_tables(h, dev)
+        shells = packed_shells(h, dev) if kernels else shells_from_tables(h, dev)
     scan_args = (density, prev_xe, shells, consts["inv_growth_pf"], float(_f32(h["fstar10"])))
     scan_kwargs = dict(
         shape=so.lowres_shape, box_lens=so.box_lens, heat_filter=ao.heat_filter_int,
