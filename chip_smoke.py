@@ -1,24 +1,30 @@
 #!/usr/bin/env python3
-"""Drive py21cmfast_torch on one NVIDIA GPU and check it.
+"""Check py21cmfast_torch on one NVIDIA GPU.
 
 Run from the repository root on a machine with a CUDA card:
 
     python3 chip_smoke.py
 
+This is a check, not a benchmark: benchmark/run.py times the port end to
+end.  The one set of times printed here is the kernels line (below).
+
 Phases, in order; any failure raises and the script exits non-zero:
   1. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  2. build every CUDA kernel in py21cmfast_torch/csrc (one nvcc per source,
-     in parallel), with ptxas's register report;
-  3. each kernel against its plain PyTorch version on the card: edge cases
-     and the perturb's own inputs at the simple coeval's shape (384^3 ->
-     128^3) and at the headline lightcone's (768^3 -> 256^3, whose ICs are
-     computed and timed here), with CUDA-event timings of the kernel and its
-     plain version, and the share of the deposits that bypass the kernel's
-     shared-memory tile;
+     the host has the free memory phases 12 and 14 need;
+  2. every CUDA kernel in py21cmfast_torch/csrc builds (one nvcc per
+     source, in parallel; ptxas's register report printed), and the R = 3
+     deposit's shared-memory adds are native integer ATOMS.ADD in its SASS;
+  3. the deposit kernel against its plain PyTorch version on the card: edge
+     cases, then the perturb's own z=8 inputs at the simple coeval's shape
+     (384^3 -> 128^3) and at the headline lightcone's (768^3 -> 256^3),
+     each cell within 1e-5 of its mass and the total mass within 1e-6; at
+     the two main-path shapes, CUDA-event times of the kernel and its plain
+     version against the byte bound (the kernels line);
   4. a golden-size coeval (HII_DIM=24) on the card against the same coeval on
      the CPU, from the same hires density;
   4b. the same for PERTURB_DEPOSIT="SCATTER" and PERTURB_ON_HIGH_RES, which
-     reach the same kernel, and PERTURB_ON_HIGH_RES at the main path's size;
+     reach the same kernel, and PERTURB_ON_HIGH_RES at the main path's size
+     (a finite density, the kernel against its plain version);
   4c. the golden-size evolving coeval (USE_TS_FLUCT, inhomogeneous
      recombinations, 5 nodes down to z=10.5) on the card against the CPU:
      Ts, Tk, x_e, N_rec, xH and Tb;
@@ -51,102 +57,76 @@ Phases, in order; any failure raises and the script exits non-zero:
      cone; the ALPHA- and F-PHOTONCONS fits and coevals; a coeval at
      DIM/HII_DIM = 2.5 (the scatter route, no kernel launch);
   5. the first main path: run_coeval of the simple+size-medium template
-     (HII_DIM=128, DIM=384, 256 Mpc) at z=10 and z=8, with every kernel's
-     launch count zeroed just before and read just after;
-  6. warm per-stage times of the same coeval, and each stage's device-busy
-     time from a second pass under torch.profiler;
+     (HII_DIM=128, DIM=384, 256 Mpc) at z=10 and z=8: one deposit launch a
+     redshift, no Ts shell kernel, finite fields, xH in [0, 1] and falling;
   7. the second main path: the same template with USE_TS_FLUCT and
      inhomogeneous recombinations, evolved down its node ladder to z=8 (37
-     nodes of ZPRIME_STEP_FACTOR=1.04)
-     through generate_coeval, launch counts zeroed just before and read just
-     after (one deposit launch per node), with the seconds per node, the host
-     time of the Ts step and what the table prefetch hid of it;
-  8. per-stage wall and device-busy times at three nodes of that scroll;
+     nodes of ZPRIME_STEP_FACTOR=1.04) through generate_coeval: every node
+     yielded with finite fields, one deposit launch a node, two Ts shell
+     kernel launches a shell, Tk past its minimum, recombinations
+     accumulated;
   9. the third main path, the repo's headline lightcone: bench.py's physics
      (bench.py:73-91) with MINIMIZE_MEMORY on, which bench.py turns on only
-     at DIM >= 4 HII_DIM (its full768 segment is bench_torch.py's
-     full768), at HII_DIM=256, DIM=768, BOX_LEN=384, USE_TS_FLUCT,
-     inhomogeneous recombinations, 92 nodes from z=35.37 to z=5, 2566
-     slices, through
-     generate_lightcone with the velocity-gradient correction and RSDs,
-     launch counts zeroed just before and read just after (one deposit
-     launch per node): seconds per node, the finalization's steps with their
-     device-busy times, peak memory, a fully written finite cone, the host
-     synchronisations inside each of the three nodes around z=8
-     (torch.cuda.set_sync_debug_mode), and the stages of the node nearest
-     z=8;
+     at DIM >= 4 HII_DIM, at HII_DIM=256, DIM=768, BOX_LEN=384,
+     USE_TS_FLUCT, inhomogeneous recombinations, 92 nodes from z=35.37 to
+     z=5, 2566 slices, through generate_lightcone with the
+     velocity-gradient correction and RSDs: every node with finite fields,
+     one deposit launch a node, the Ts shell kernels taken, a fully written
+     finite cone, a falling global xH;
   10. the fourth main path: the Munoz21 (EOS21) lightcone at the headline's
-     box and ladder cut to z=15 (256³/768³, 42 nodes, dvdr and RSDs), its
-     ICs with the v_cb box timed first; as phase 9, with ⟨J_21_LW⟩ and the
-     turnover means per node and the stages of the last node (z=15);
+     box and ladder cut to z=15 (256^3/768^3, 42 nodes), as phase 9 but on
+     the Ts torch path, with a well-formed v_cb box, a Lyman-Werner
+     background and turnover masses in range;
   11. the fifth main path: the fixed-halos template (L-INTEGRAL sources
      through the HaloBox and the XraySourceBox, USE_EXP_FILTER, CELL_RECOMB)
-     at the headline's box and ladder cut to z=15, as phase 9: seconds per
-     node, peak memory, 42 deposit launches, a fully written finite cone,
-     and the last node (z=15) by stage (the HaloBox's host tables, gathers and
-     displacement scatter apart, the XraySourceBox, Ts, ionize, Tb), with
-     CUDA-event times of the displacement scatter;
+     at the headline's box and ladder cut to z=15, as phase 10, with a
+     HaloBox at every node;
   12. the sixth main path: the latest-discrete template (CHMF-SAMPLER with
      MASS-LIMITED progenitors, USE_TS_FLUCT, INHOMOGENEOUS) at 128^3 / 384^3
      in a 192 Mpc box (its 1.5 Mpc cell) down the headline's ladder cut to
-     z=8 (72 nodes), as phase 9, from the default CUDA generators: the
-     catalog chain's wall, whole and by step, the halo counts, the host
-     memory of the waiting catalogs, a
+     z=8 (72 nodes), as phase 10, from the default CUDA generators, with a
      statistical gate on the z=8 grid sample (its count within 1% of the
-     expected, each of 4 mass octaves within 5 sigma of the conditional MF),
-     and the node nearest z=8 by stage (perturb_halo_catalog, the halo
-     properties, the halo CIC with CUDA-event times, the sub-sampler grids,
-     the XraySourceBox, Ts, ionize, Tb).
+     expected, each of 4 mass octaves within 5 sigma of the conditional MF);
   13. the headline lightcone of phase 9 under Z-PHOTONCONS (run right after
-     phase 9, from its ICs), its ladder cut to z=15: the calibration's
-     coevals, z range and wall, seconds per node, <xH> and <Tb> at z=15
-     beside phase 9's, peak memory, one deposit launch a node and a
-     calibration step;
+     phase 9, from its ICs), its ladder cut to z=15, as phase 9: one deposit
+     launch a node and a calibration step, and the nodes shifted;
   14. generate_coeval of the latest-discrete template at phase 12's box
      down to z=10, once with PARTITION and once with BINARY-SPLIT
-     progenitors: the catalog chain's wall and parts, the halo counts, the
-     seconds per node, the first progenitor step's mass octaves against the
-     conditional MF, the binary split's spilled rows and force-saved
-     branches;
+     progenitors: every node, one deposit launch a node, finite fields, and
+     the first progenitor step's 4 mass octaves against the conditional MF;
   15. run_global_evolution (the 0-D history) on the headline's inputs on
      the card against the same run on the CPU, which runs in a process of
-     its own beside the card's phases from the start, with the relative
-     difference of Ts, Tk, x_e and xH at every node;
+     its own beside the card's phases from the start;
   16. (right after phase 13) the command line: `python -m py21cmfast_torch
      template avail` and `run params` in subprocesses, then `cli.main` of
      `run lightcone` on the headline's settings cut to z=15 (42 nodes, one
-     deposit launch each), its wall, launches, peak memory and output line;
-     the power spectrum of a z~8 chunk of phase 9's Tb cone on the card
-     against the CPU, the Thomson optical depth of phase 9's global xH, and
-     convert_halo_properties of 1e7 masses on the card against the CPU.
-  17. (last) the multi-GPU layer, py21cmfast_torch.parallel: 17a
-     run_sharded_coeval of the simple box at z=8 over NCCL with one rank in
-     this process; 17b two ranks sharing the one card (gloo, collectives
-     through host memory) on the headline's box at z=8; 17c the headline's
-     physics as run_sharded_lightcone at 128^3 over 9 nodes, its last
-     node's (z=8) Ts step compared stage by stage; 17d the
-     latest-discrete template at 64^3 to z=10 (the slab sampler's
-     statistics, the sharded painting); each against the single-device run
-     of the same seed, with its wall by part, the time inside collectives
-     and each rank's peak memory; 17e 17b over NCCL with one card a rank,
-     only where there are two cards.
-  18. (last) bench_torch.py's faithful segment, bench.py's full1024: the
-     reference's own DIM = 4 HII_DIM ratio, HII_DIM=256, DIM=1024,
-     MINIMIZE_MEMORY on: the 1024^3 ICs' first call and peak memory; the
-     ratio-4 kernel against its plain version (run in hires x-slabs: whole,
-     it does not fit the card) on the perturb's own z=8 inputs at 1024^3 ->
-     256^3, with phase 3's timings and bound; then
-     bench_torch.run_full_lightcone(256, 1024) cut in depth to z=8 (72 of
-     its 92 nodes; bench_torch.py runs them all), launch counts zeroed just
-     before and read just after (one deposit launch a node), a fully written
-     finite cone and the peak memory.
-  19. (last) the spin temperature's fused shell kernels (csrc/ts_shell.cu) at
+     deposit launch each, a finite 256^2 cone); the power spectrum of a z~8
+     chunk of phase 9's Tb cone on the card against the CPU, the Thomson
+     optical depth of phase 9's global xH, and convert_halo_properties of
+     1e7 masses on the card against the CPU.
+  17. the multi-GPU layer, py21cmfast_torch.parallel, each run against the
+     single-device run of the same seed, with no deposit or Ts shell kernel
+     launch: 17a run_sharded_coeval of the simple box at z=8 over NCCL with
+     one rank in this process; 17b two ranks sharing the one card (gloo,
+     collectives through host memory) on the headline's box at z=8; 17c the
+     headline's physics as run_sharded_lightcone at 128^3 over 9 nodes per
+     node and cone, its last node's (z=8) Ts step compared stage by stage;
+     17d the latest-discrete template at 64^3 to z=10 (the slab sampler's
+     statistics, the sharded painting); 17e 17b over NCCL with one card a
+     rank, only where there are two cards.
+  18. the faithful lightcone, bench.py's full1024: the reference's own DIM =
+     4 HII_DIM ratio, HII_DIM=256, DIM=1024, MINIMIZE_MEMORY on: the ratio-4
+     kernel against its plain version (run in hires x-slabs: whole, it does
+     not fit the card) on the perturb's own z=8 inputs at 1024^3 -> 256^3,
+     with phase 3's times and bound; then the lightcone to z=8 (72 of its 92
+     nodes) as phase 9.
+  19. the spin temperature's fused shell kernels (csrc/ts_shell.cu) at
      256^3 over the real 40-shell ladder of the latest template's z=25 Ts
      step (its host tables; a lognormal density and an x_e across the
      knots): the kernel path against the plain torch path on the card in
      four cases (the Chebyshev fit, the table gather, CONST-ION-EFF, Lya
      heating off; relative L2 of each accumulator <= 1e-5, two runs
-     bit-identical), then CUDA-event timings of the whole scan on both paths
+     bit-identical), then CUDA-event times of the whole scan on both paths
      and of the two kernels alone over the 40 shells against their byte
      bound.  Its row of the kernels line gives the kernels' launches on
      each main path of the phases before, each path's counts zeroed just
@@ -186,15 +166,12 @@ PEAK_FP32_FLOPS = 67e12
 DEPOSIT_FLOPS_PER_PARTICLE = 44
 
 
-def _recorded(kind, name):
-    """The process's total of a recorder span's seconds (`kind` "spans") or
-    of a counter over its stages (`kind` "counters"), py21cmfast_torch.tracing."""
+def _counted(name):
+    """The process's total of a recorder counter over its stages
+    (py21cmfast_torch.tracing)."""
     from py21cmfast_torch import tracing
 
-    booked = tracing.totals()[kind]
-    if kind == "spans":
-        return booked[name][1] if name in booked else 0.0
-    return sum(booked.get(name, {}).values())
+    return sum(tracing.totals()["counters"].get(name, {}).values())
 
 
 # the fused Ts shell kernels' launches on each main path, by path (phase
@@ -208,7 +185,7 @@ def _ts_shell_zero():
     from py21cmfast_torch.ops import ts_shell
 
     ts_shell.ts_shell_reduce.launches = ts_shell.ts_shell_accumulate.launches = 0
-    return _recorded("counters", "ts.kernel_shells")
+    return _counted("ts.kernel_shells")
 
 
 def _ts_shell_read(path, shells0, taken=None):
@@ -219,7 +196,7 @@ def _ts_shell_read(path, shells0, taken=None):
     minihalos) or the torch code (False).  Returns the launches."""
     from py21cmfast_torch.ops import ts_shell
 
-    shells = _recorded("counters", "ts.kernel_shells") - shells0
+    shells = _counted("ts.kernel_shells") - shells0
     reduce_n = ts_shell.ts_shell_reduce.launches
     accumulate_n = ts_shell.ts_shell_accumulate.launches
     if not reduce_n == accumulate_n == shells:
@@ -230,16 +207,6 @@ def _ts_shell_read(path, shells0, taken=None):
                              f"{'some' if taken else 'none'}")
     TS_SHELL_BY_PATH[path] = reduce_n + accumulate_n
     return reduce_n + accumulate_n
-
-
-def _sync_time(fn):
-    import torch
-
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = fn()
-    torch.cuda.synchronize()
-    return out, time.perf_counter() - t0
 
 
 def _event_median_ms(fn, reps, warmup=2):
@@ -277,10 +244,8 @@ def card_info():
 def build_kernels():
     from py21cmfast_torch import _kernels
 
-    t0 = time.perf_counter()
     logs = _kernels.build()
-    print(f"[build] {len(logs)} of {len(_kernels.sources())} sources compiled in "
-          f"{time.perf_counter() - t0:.2f} s")
+    print(f"[build] {len(logs)} of {len(_kernels.sources())} sources compiled")
     for name, log in logs.items():
         lines = log.splitlines()
         for i, line in enumerate(lines):
@@ -290,10 +255,10 @@ def build_kernels():
                     "kernelILi3E" in line or "kernelILi4E" in line or "ts_shell" in line):
                 print(f"[build] {name}: {line.split(chr(39))[1]}: "
                       + "; ".join(x.strip() for x in lines[i + 1:i + 4] if "bytes" in x or "registers" in x))
-    _print_shared_atomic_opcodes()
+    _check_shared_atomic_opcodes()
 
 
-def _print_shared_atomic_opcodes():
+def _check_shared_atomic_opcodes():
     """How the card's compiler lowered the adds of the R = 3 kernel: count the
     atomic opcodes in its SASS (cuobjdump).  The tile's adds must be native
     integer ones (ATOMS.ADD), with no compare-and-swap loop (ATOMS.CAST.SPIN),
@@ -314,43 +279,6 @@ def _print_shared_atomic_opcodes():
     print(f"[build] SASS {bodies[0].split()[0]}: {dict(ops)}")
     if ops["ATOMS.ADD"] < 27 or any("CAS" in op for op in ops):
         raise AssertionError(f"the tile's 27 adds are not native integer adds: {dict(ops)}")
-
-
-# the kernel's brick of channel cells per block, at ratio 1 and above, and its
-# halo (H cells below the brick, H + 1 above), as csrc/cic_deposit.cu sets them
-DEPOSIT_BRICK_RATIO1, DEPOSIT_BRICK, DEPOSIT_HALO = (16, 16, 16), (8, 8, 32), 3
-
-
-def global_path_share(d, ratio):
-    """Share of the sub-particles whose deposits bypass the kernel's
-    shared-memory tile and go to global memory, computed with torch from the
-    displacement fields by the kernel's own rule (csrc/cic_deposit.cu).
-    Ratio above 1: a channel's 27 sums go global when on some axis the 3-cell
-    stencil that starts at floor(c + d + s_first/R) leaves the tile of the
-    brick that holds c (`tile_coordinate`), or spans more than 3 cells
-    (`stencil_base`).  Ratio 1: a particle goes global when on some axis its
-    2 cells from floor(c + d) leave the tile."""
-    import torch
-
-    brick, halo = DEPOSIT_BRICK_RATIO1 if ratio == 1 else DEPOSIT_BRICK, DEPOSIT_HALO
-    residuals = [float(np.float32(s - ratio // 2) / np.float32(ratio)) for s in range(ratio)]
-    inside = 1.0
-    for axis, (da, b) in enumerate(zip(d, brick)):
-        shape = [1, 1, 1]
-        shape[axis] = da.shape[axis]
-        c = torch.arange(da.shape[axis], device=da.device)
-        q = c.to(torch.float32).reshape(shape) + da
-        origin = (torch.div(c, b, rounding_mode="floor") * b - halo).to(torch.float32).reshape(shape)
-        extent = b + 2 * halo + 1
-        if ratio > 1:
-            base = torch.floor(q + residuals[0])
-            t = base - origin
-            ok = (t >= 0) & (t <= extent - 3) & (torch.floor(q + residuals[-1]) - base <= 1)
-            inside = inside * ok.double()
-        else:
-            t = torch.floor(q) - origin
-            inside = inside * ((t >= 0) & (t <= extent - 2)).double()
-    return 1.0 - inside.mean().item()
 
 
 def check_deposit(hires, d, d_init, ratio, label, plain_rows=None):
@@ -381,12 +309,10 @@ def check_deposit(hires, d, d_init, ratio, label, plain_rows=None):
         and abs(tot_k - tot_p) <= 1e-6 * abs(tot_p)
         and abs(tot_k - tot_exact) <= 1e-6 * abs(tot_exact)
     )
-    share = global_path_share(d, ratio)
     print(f"[deposit] {label}: "
           f"max|kernel-plain| {err:.3e} (mean mass {mean:.3f}), "
           f"max |kernel-plain|/max(plain, mean) {worst:.3e} (limit 1e-5), "
-          f"mass kernel {tot_k:.9e} plain {tot_p:.9e} exact {tot_exact:.9e}, "
-          f"global-path share {share:.3e} -> "
+          f"mass kernel {tot_k:.9e} plain {tot_p:.9e} exact {tot_exact:.9e} -> "
           f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"cic_deposit_swept disagrees with its plain version ({label})")
@@ -409,10 +335,10 @@ DEPOSIT_CASES = [
 
 
 def _time_deposit(hires, d, d_init, ratio, label, reps=20, plain_rows=None):
-    """Kernel against plain at one shape, then CUDA-event timings: the
-    kernel's median of single calls (each between its own pair of events, so
-    it holds the host's time to enqueue one call), a call in a run of 50, the
-    host's time a call, the plain version's median, and the bound."""
+    """Kernel against plain at one shape, then the kernels line's CUDA-event
+    timings: the kernel's median of single calls (each between its own pair
+    of events, so it holds the host's time to enqueue one call), a call in a
+    run of 50, the plain version's median, and the bound."""
     import torch
 
     from py21cmfast_torch.ops import deposit
@@ -434,27 +360,10 @@ def _time_deposit(hires, d, d_init, ratio, label, reps=20, plain_rows=None):
         end.synchronize()
         return start.elapsed_time(end) / n
 
-    def host_call_ms(n=200):
-        """Host clock over n wrapper calls that nothing waits for: what one
-        call costs the host before its launch is enqueued (argument checks,
-        the output's allocation, the ctypes call)."""
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(n):
-            kernel()
-        seconds = time.perf_counter() - t0
-        torch.cuda.synchronize()
-        return 1e3 * seconds / n
-
-    # kernel, plain, kernel again: one card, in turns
     kernel_ms, batch_ms = _event_median_ms(kernel, reps), batched_ms()
     plain_ms = _event_median_ms(lambda: deposit.cic_deposit_swept_plain(hires, *d, d_init, ratio,
                                                                           x_rows=plain_rows),
                                 max(3, reps // 2))
-    host_ms = host_call_ms()
-    print(f"[deposit] {label}, kernel again: {_event_median_ms(kernel, reps):.4f} ms (median of "
-          f"{reps} single calls), {batched_ms():.4f} ms a call in a run of 50; the host spends "
-          f"{host_ms:.4f} ms on a call (200 calls, not waited for)")
     n_lo = d[0].numel()
     n_bytes = 4 * (hires.numel() + 3 * n_lo + n_lo)
     n_ops = DEPOSIT_FLOPS_PER_PARTICLE * hires.numel()
@@ -470,7 +379,6 @@ def _time_deposit(hires, d, d_init, ratio, label, reps=20, plain_rows=None):
         "ms": kernel_ms,
         "kernel_ms": kernel_ms,
         "batched_ms": batch_ms,
-        "host_call_ms": host_ms,
         "plain_ms": plain_ms,
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
@@ -499,7 +407,7 @@ def kernel_phase():
     coeval's shape (384^3 -> 128^3) and at the headline lightcone's (768^3 ->
     256^3), with timings of the kernel and its plain version.  Returns the
     kernel's entry (headline-shape numbers at its top level) and the headline
-    ICs, whose first computation is timed here."""
+    inputs and ICs."""
     import torch
 
     import py21cmfast_torch as p21
@@ -532,10 +440,7 @@ def kernel_phase():
     del ics, d
 
     inputs = _headline_inputs()
-    ics, ics_s = _sync_time(lambda: p21.compute_initial_conditions(inputs))
-    print(f"[deposit] headline ICs at {inputs.simulation_options.hires_shape} -> "
-          f"{inputs.simulation_options.lowres_shape}: {ics_s:.3f} s (first call, synchronised), "
-          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    ics = p21.compute_initial_conditions(inputs)
     d, d_init, ratio = _main_path_deposit_inputs(inputs, ics, 8.0)
     by_shape["768^3->256^3"] = _time_deposit(
         ics.hires_density, d, d_init, ratio,
@@ -552,7 +457,7 @@ def kernel_phase():
         "library_ms": None,  # no single PyTorch call computes a CIC deposit
         "by_shape": by_shape,
     }
-    return entry, (inputs, ics, ics_s)
+    return entry, (inputs, ics)
 
 
 def _card_vs_cpu_coeval(label, nodes=False, **over):
@@ -651,12 +556,11 @@ def perturb_paths_phase(dens_swept):
     (the same function as SWEPT, so the same field on the same density) and
     PERTURB_ON_HIGH_RES (ratio 1 onto the hires grid, then filter and
     subsample).  Then the PERTURB_ON_HIGH_RES perturb at the main path's size,
-    384^3 onto 384^3, with the kernel's time there."""
+    384^3 onto 384^3, and the kernel against its plain version there."""
     import torch
 
     import py21cmfast_torch as p21
     from py21cmfast_torch.models import perturb
-    from py21cmfast_torch.ops import deposit
 
     dens_scatter = _card_vs_cpu_coeval("SCATTER", PERTURB_DEPOSIT="SCATTER")
     err = (dens_scatter - dens_swept).abs().max().item()
@@ -669,8 +573,7 @@ def perturb_paths_phase(dens_swept):
         MAIN_TEMPLATE, random_seed=SEED).evolve_input_structs(PERTURB_ON_HIGH_RES=True)
     so = inputs.simulation_options
     ics = p21.compute_initial_conditions(inputs)
-    p21.perturb_field(8.0, inputs, ics)
-    pf, seconds = _sync_time(lambda: p21.perturb_field(8.0, inputs, ics))
+    pf = p21.perturb_field(8.0, inputs, ics)
     if tuple(pf.density.shape) != so.lowres_shape or not bool(torch.isfinite(pf.density).all()):
         raise AssertionError("PERTURB_ON_HIGH_RES at the main path's size: bad density")
     _, D_init, fac_za, fac_2lpt = perturb._displacement_factors(inputs, 8.0)
@@ -680,11 +583,7 @@ def perturb_paths_phase(dens_swept):
     )
     d_init = float(np.float32(D_init))
     check_deposit(ics.hires_density, d, d_init, 1, f"PERTURB_ON_HIGH_RES z=8 hires {so.hires_shape}")
-    ms = _event_median_ms(lambda: deposit.cic_deposit_swept(ics.hires_density, *d, d_init, 1), 10)
-    print(f"[hires] PERTURB_ON_HIGH_RES z=8 at {so.hires_shape} -> {so.hires_shape}: warm perturb "
-          f"{seconds * 1e3:.2f} ms wall, deposit kernel {ms:.4f} ms (median of 10 single calls), "
-          f"global-path share {global_path_share(d, 1):.3e}; byte bound "
-          f"{1e3 * 4 * 5 * ics.hires_density.numel() / PEAK_BYTES_PER_S:.4f} ms; displacement "
+    print(f"[hires] PERTURB_ON_HIGH_RES z=8 at {so.hires_shape} -> {so.hires_shape}: displacement "
           f"rms per axis {[round(x.std().item(), 3) for x in d]} hires cells, density std "
           f"{pf.density.std().item():.5f}")
 
@@ -716,23 +615,18 @@ def _check_fields(z, lo, *structs):
 
 def main_path_phase(kernels):
     """run_coeval of the main path; launch counts zeroed just before."""
-    import torch
-
     import py21cmfast_torch as p21
     from py21cmfast_torch.ops import deposit
 
     wrappers = {"cic_deposit_swept": deposit.cic_deposit_swept}
     inputs = p21.InputParameters.from_template(MAIN_TEMPLATE, random_seed=SEED)
-    torch.cuda.reset_peak_memory_stats()
     for w in wrappers.values():
         w.launches = 0
     shells0 = _ts_shell_zero()
-    coevals, seconds = _sync_time(lambda: p21.run_coeval(inputs, MAIN_REDSHIFTS))
+    coevals = p21.run_coeval(inputs, MAIN_REDSHIFTS)
     launches = {name: w.launches for name, w in wrappers.items()}
     _ts_shell_read("simple", shells0, taken=False)
-    print(f"[main] run_coeval({MAIN_TEMPLATE}, {MAIN_REDSHIFTS}) on the card: {seconds:.3f} s "
-          f"(first call), launches {launches}, peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    print(f"[main] run_coeval({MAIN_TEMPLATE}, {MAIN_REDSHIFTS}) on the card: launches {launches}")
     for k in kernels:
         k["launches_by_path"] = {"simple": launches[k["name"]]}
         if launches[k["name"]] < 1:
@@ -755,62 +649,6 @@ def main_path_phase(kernels):
         raise AssertionError(f"xH does not fall from z=10 to z=8: {xh}")
 
 
-def _device_busy_ms(fn):
-    """Run `fn` under torch.profiler; return the union of its device
-    activity intervals in ms and the three busiest kernels, or None where
-    the profiler recorded no device activity.  A one-element fill runs first
-    inside the profile and is left out of the sums: the tracer may drop the
-    first device events of a window (seen once: a perturb whose deposit
-    kernel was missing from the trace)."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.zeros(1, device="cuda")
-        _sync_time(fn)
-    spans = sorted(
-        (e.time_range.start, e.time_range.end, e.name)
-        for e in prof.events() if e.device_type == DeviceType.CUDA
-    )[1:]
-    if not spans:
-        return None
-    busy, end, by_name = 0.0, -np.inf, {}
-    for s, e, name in spans:
-        busy += max(0.0, e - max(s, end))
-        end = max(end, e)
-        by_name[name] = by_name.get(name, 0.0) + (e - s)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:3]
-    return busy / 1e3, [(n[:60], round(t / 1e3, 4)) for n, t in top]
-
-
-def stage_phase():
-    """Warm, synchronised per-stage times of the main path's coeval, then the
-    device-busy time of each stage from a second, profiled pass."""
-    import py21cmfast_torch as p21
-
-    inputs = p21.InputParameters.from_template(MAIN_TEMPLATE, random_seed=SEED)
-    ics, t = _sync_time(lambda: p21.compute_initial_conditions(inputs))
-    stages = [("ICs", t, lambda: p21.compute_initial_conditions(inputs))]
-    for z in MAIN_REDSHIFTS:
-        pf, t_pf = _sync_time(lambda: p21.perturb_field(z, inputs, ics))
-        ion, t_ion = _sync_time(lambda: p21.compute_ionization_field(z, inputs, pf))
-        _, t_tb = _sync_time(lambda: p21.brightness_temperature(inputs, ion, pf))
-        stages += [
-            (f"perturb z={z}", t_pf, lambda z=z: p21.perturb_field(z, inputs, ics)),
-            (f"ionize z={z}", t_ion, lambda z=z, pf=pf: p21.compute_ionization_field(z, inputs, pf)),
-            (f"Tb z={z}", t_tb, lambda pf=pf, ion=ion: p21.brightness_temperature(inputs, ion, pf)),
-        ]
-    for name, wall, fn in stages:
-        busy = _device_busy_ms(fn)
-        busy_txt = (
-            "device busy not measured (the profiler saw no device activity)" if busy is None
-            else f"device busy {busy[0]:.3f} ms ({100 * busy[0] / (wall * 1e3):.1f}% of the "
-                 f"unprofiled wall), top kernels {busy[1]}"
-        )
-        print(f"[stages] {name}: {wall * 1e3:.2f} ms wall; {busy_txt}")
-
-
 # ZPRIME_STEP_FACTOR=1.04 (37 nodes) cuts the depth of this scroll, whose
 # width phases 9 and 10 drive at 256^3 down 92 nodes of 1.02
 SCROLL_OPTIONS = dict(
@@ -830,77 +668,43 @@ def _scroll_inputs():
 
 def scroll_phase(kernels):
     """The evolving coeval at full width: generate_coeval yields every node of
-    the ladder down to z=8; launch counts zeroed just before.  Returns the
-    inputs, the ICs and, for three sample nodes, what the node was computed
-    from (for the per-stage pass)."""
+    the ladder down to z=8; launch counts zeroed just before."""
     import torch
 
     import py21cmfast_torch as p21
-    from py21cmfast_torch.drivers.coeval import _slim_chain_ion
-    from py21cmfast_torch.models import spintemp
     from py21cmfast_torch.ops import deposit
 
     wrappers = {"cic_deposit_swept": deposit.cic_deposit_swept}
     inputs = _scroll_inputs()
     so = inputs.simulation_options
     nodes = list(inputs.node_redshifts)
-    evolving = [i for i, z in enumerate(nodes) if z < so.Z_HEAT_MAX and i > 0]
-    sample_at = {evolving[0], evolving[len(evolving) // 2], len(nodes) - 1}
     print(f"[scroll] {MAIN_TEMPLATE} + {SCROLL_OPTIONS}, ZPRIME_STEP_FACTOR "
           f"{so.ZPRIME_STEP_FACTOR}, Z_HEAT_MAX {so.Z_HEAT_MAX}: {len(nodes)} nodes "
           f"{nodes[0]:.3f} -> {nodes[-1]:.3f}")
 
-    # host seconds inside each Ts step (no synchronisation added)
-    ts_host = []
-    compute_ts = spintemp.compute_spin_temperature
-
-    def timed_ts(*a, **kw):
-        t0 = time.perf_counter()
-        out = compute_ts(*a, **kw)
-        ts_host.append(time.perf_counter() - t0)
-        return out
-
-    prefetch0 = {k: _recorded("spans", k) for k in ("ts.sfrd_build", "ts.sfrd_wait")}
-    torch.cuda.reset_peak_memory_stats()
     for w in wrappers.values():
         w.launches = 0
     shells0 = _ts_shell_zero()
-    spintemp.compute_spin_temperature = timed_ts
-    seconds, means, samples, prev, ics = [], [], {}, None, None
-    try:
-        torch.cuda.synchronize()
-        t_start = t0 = time.perf_counter()
-        for i, cv in enumerate(p21.generate_coeval(inputs)):
-            torch.cuda.synchronize()
-            seconds.append(time.perf_counter() - t0)
-            if cv.redshift != nodes[i]:
-                raise AssertionError(f"node {i}: yielded z={cv.redshift}, expected {nodes[i]}")
-            ics = cv.initial_conditions
-            _check_fields(cv.redshift, so.lowres_shape, cv.perturbed_field, cv.spin_temp,
-                          cv.ionized_box, cv.brightness_temperature)
-            ts = cv.spin_temp
-            means.append(torch.stack([
-                cv.neutral_fraction.double().mean(), cv.brightness_temp.double().mean(),
-                ts.kinetic_temp_neutral.double().mean(), ts.spin_temperature.double().mean(),
-                ts.xray_ionised_fraction.double().mean(),
-                (cv.ionized_box.cumulative_recombinations.double().mean()
-                 if cv.ionized_box.cumulative_recombinations is not None
-                 else torch.zeros((), dtype=torch.float64, device="cuda")),
-            ]).tolist())
-            if i in sample_at:
-                samples[i] = dict(z=cv.redshift, pf=cv.perturbed_field, prev_ts=prev[0],
-                                  prev_ion=prev[1], prev_z=prev[2], ts=ts, ion=cv.ionized_box)
-            prev = (ts, _slim_chain_ion(cv.ionized_box, keep_xh=False), cv.redshift)
-            t0 = time.perf_counter()
-        total = time.perf_counter() - t_start
-    finally:
-        spintemp.compute_spin_temperature = compute_ts
+    means = []
+    for i, cv in enumerate(p21.generate_coeval(inputs)):
+        if cv.redshift != nodes[i]:
+            raise AssertionError(f"node {i}: yielded z={cv.redshift}, expected {nodes[i]}")
+        _check_fields(cv.redshift, so.lowres_shape, cv.perturbed_field, cv.spin_temp,
+                      cv.ionized_box, cv.brightness_temperature)
+        ts = cv.spin_temp
+        means.append(torch.stack([
+            cv.neutral_fraction.double().mean(), cv.brightness_temp.double().mean(),
+            ts.kinetic_temp_neutral.double().mean(), ts.spin_temperature.double().mean(),
+            ts.xray_ionised_fraction.double().mean(),
+            (cv.ionized_box.cumulative_recombinations.double().mean()
+             if cv.ionized_box.cumulative_recombinations is not None
+             else torch.zeros((), dtype=torch.float64, device="cuda")),
+        ]).tolist())
     launches = {name: w.launches for name, w in wrappers.items()}
     _ts_shell_read("scroll", shells0, taken=True)
-    peak = torch.cuda.max_memory_allocated() / 2**30
 
-    if len(seconds) != len(nodes):
-        raise AssertionError(f"{len(seconds)} coevals from {len(nodes)} nodes")
+    if len(means) != len(nodes):
+        raise AssertionError(f"{len(means)} coevals from {len(nodes)} nodes")
     for k in kernels:
         k["launches_by_path"]["scroll"] = launches[k["name"]]
         k["launches"] = sum(k["launches_by_path"].values())
@@ -909,24 +713,11 @@ def scroll_phase(kernels):
     if launches["cic_deposit_swept"] != len(nodes):
         raise AssertionError(f"expected {len(nodes)} deposit launches in the scroll, got {launches}")
 
-    # seconds[0] holds the ICs and everything built at first use
-    later = np.array(seconds[1:])
-    stats = {k[3:] + "_s": _recorded("spans", k) - v for k, v in prefetch0.items()}
-    hidden = stats["sfrd_build_s"] - stats["sfrd_wait_s"]
-    ts_total = float(np.sum(ts_host))
-    print(f"[scroll] {len(nodes)} nodes in {total:.2f} s on the card: first node (with the ICs) "
-          f"{seconds[0]:.3f} s, then median {np.median(later):.4f} s a node "
-          f"(min {later.min():.4f}, max {later.max():.4f}); launches {launches}; peak memory "
-          f"{peak:.3f} GiB")
-    print(f"[scroll] Ts step, host seconds inside the call: total {ts_total:.2f} s, median "
-          f"{np.median(ts_host):.4f} s a node; the prefetch thread built SFRD tables for "
-          f"{stats['sfrd_build_s']:.2f} s and nodes waited {stats['sfrd_wait_s']:.2f} s for them: "
-          f"{hidden:.2f} s hidden, {100 * hidden / (ts_total + hidden):.1f}% of the Ts wall "
-          f"there would be without it")
-    for i in sorted({0, *sample_at, len(nodes) // 4, 3 * len(nodes) // 4}):
+    print(f"[scroll] {len(nodes)} nodes on the card; launches {launches}")
+    for i in sorted({0, len(nodes) // 4, len(nodes) // 2, 3 * len(nodes) // 4}):
         xh, tb, tk, tsp, xe, nrec = means[i]
-        print(f"[scroll] node {i:2d} z={nodes[i]:7.3f}: {seconds[i]:.4f} s, <xH> {xh:.6f}, <Tb> "
-              f"{tb:.4f} mK, <Tk> {tk:.4f} K, <Ts> {tsp:.4f} K, <x_e> {xe:.3e}, <N_rec> {nrec:.3e}")
+        print(f"[scroll] node {i:2d} z={nodes[i]:7.3f}: <xH> {xh:.6f}, <Tb> {tb:.4f} mK, <Tk> "
+              f"{tk:.4f} K, <Ts> {tsp:.4f} K, <x_e> {xe:.3e}, <N_rec> {nrec:.3e}")
     xh, tb, tk, tsp, xe, nrec = means[-1]
     tk_all = np.array([m[2] for m in means])
     i_min = int(tk_all.argmin())
@@ -938,264 +729,6 @@ def scroll_phase(kernels):
         raise AssertionError("Tk has not passed its minimum (no heating turn-around) by the last node")
     if not nrec > 0:
         raise AssertionError("no recombinations were accumulated")
-    return inputs, ics, [samples[i] for i in sorted(samples)]
-
-
-def _fixed_halos_stages(inputs, ics, s, z):
-    """The L-INTEGRAL stages of one node: the HaloBox whole and by its parts
-    (host tables, gathers, displacement scatter; the parts are not summed
-    into the node), the XraySourceBox from the scroll's history, the Ts step
-    that reads it, as (name, prepare, fn, summed)."""
-    from py21cmfast_torch.models import halobox as hbm
-    from py21cmfast_torch.models import spintemp, xray_source
-    from py21cmfast_torch.models.hmf import set_scaling_constants
-    from py21cmfast_torch.models.perturb import _displacement_factors
-
-    mini = inputs.astro_options.USE_MINI_HALOS
-    so = inputs.simulation_options
-    parts = {}
-
-    def mt_grids():
-        if not mini:
-            return None, None
-        return hbm._mcrit_grids(z, inputs, set_scaling_constants(z, inputs), s["prev_ts"],
-                                s["prev_ion"], ics.lowres_vcb)
-
-    def halobox_whole():
-        mt_a, mt_m = mt_grids()
-        return hbm.compute_fixed_halo_grid(z, inputs, ics.lowres_density, mt_a_grid=mt_a,
-                                           mt_m_grid=mt_m, ics=ics)
-
-    def prep_gather():
-        parts["h"], parts["mt"] = hbm.fixed_grid_tables(z, inputs), mt_grids()
-
-    def prep_scatter():
-        hb = s["halobox"]
-        props = [hb.n_ion, hb.halo_sfr, hb.whalo_sfr, hb.halo_xray, hb.halo_stars]
-        props += [hb.halo_sfr_mini, hb.halo_stars_mini] if mini else []
-        _, _, fac_za, fac_2lpt = _displacement_factors(inputs, z)
-        parts["scatter"] = (
-            props, (ics.vx, ics.vy, ics.vz), (ics.vx_2LPT, ics.vy_2LPT, ics.vz_2LPT),
-            float(np.float32(fac_za)), float(np.float32(fac_2lpt)),
-            float(np.float32(so.HII_DIM / so.box_len)))
-
-    def source_box():
-        return xray_source.compute_xray_source_field(
-            z, inputs, s["history"], previous_ionized_box=s["prev_ion"])
-
-    def prep_ts():
-        parts["source"] = source_box()
-
-    def ts_step():
-        return spintemp.compute_spin_temperature(
-            z, inputs, s["pf"], prev_state=s["prev_ts"], prev_redshift=s["prev_z"],
-            initial_conditions=ics, source_box=parts["source"], previous_ionized_box=s["prev_ion"])
-
-    stages = [
-        ("HaloBox", None, halobox_whole, True),
-        ("HaloBox host tables", None, lambda: hbm.fixed_grid_tables(z, inputs), False),
-        ("HaloBox gathers", prep_gather, lambda: hbm._gather_cells(
-            parts["h"], ics.lowres_density, *parts["mt"], one_plus_delta=False), False),
-        ("HaloBox displacement scatter", prep_scatter,
-         lambda: hbm._displace_grids(*parts["scatter"]), False),
-        ("XraySourceBox", None, source_box, True),
-        ("Ts", prep_ts, ts_step, True),
-    ]
-    return stages, parts
-
-
-def _discrete_halos_stages(inputs, ics, s, z):
-    """The sampled-halo stages of one node: perturb_halo_catalog from the
-    node's catalog (on the card), the HaloBox whole and by its parts (the
-    halo properties, the halo CIC, the sub-sampler grids; the parts are not
-    summed into the node), the XraySourceBox from the scroll's history and
-    the Ts step that reads it, as (name, prepare, fn, summed)."""
-    import torch
-
-    from py21cmfast_torch.models import halobox as hbm
-    from py21cmfast_torch.models import halos, spintemp, xray_source
-    from py21cmfast_torch.models.hmf import set_scaling_constants
-    from py21cmfast_torch.ops import grids
-
-    so = inputs.simulation_options
-    parts = {}
-    lo = so.lowres_shape
-
-    def perturb_catalog():
-        return halos.perturb_halo_catalog(z, inputs, ics, s["catalog"])
-
-    def halobox_whole():
-        return hbm.compute_halo_grid(
-            z, inputs, parts["pt"], previous_spin_temp=s["prev_ts"],
-            previous_ionized_box=s["prev_ion"], lagrangian_delta=ics.lowres_density,
-            lowres_vcb=ics.lowres_vcb, ics=ics)
-
-    def prep_pt():
-        parts["pt"] = perturb_catalog()
-        parts["pos"] = grids.true_div(parts["pt"].halo_coords, so.box_len / so.HII_DIM)
-
-    def props():
-        pt, sc = parts["pt"], set_scaling_constants(z, inputs)
-        mt_a, mt_m, *_ = hbm._halo_turnovers(z, inputs, sc, pt.halo_masses, parts["pos"],
-                                             s["prev_ts"], s["prev_ion"], ics.lowres_vcb,
-                                             torch.device("cuda"))
-        return hbm._halo_props_kernel(
-            pt.halo_masses, pt.star_rng, pt.sfr_rng, pt.xray_rng, mt_a, mt_m,
-            hbm._scaling_consts_dict(sc, inputs.cosmology, z, inputs.astro_options),
-            **hbm._props_flags(sc, inputs.astro_options))
-
-    def prep_cic():
-        prep_pt()
-        p = props()
-        dep = [p["n_ion"], p["sfr"], p["wsfr"], p["xray38"], p["stellar"],
-               torch.ones_like(parts["pt"].halo_masses)]
-        if inputs.astro_options.USE_MINI_HALOS:
-            dep += [p["sfr_mini"], p["stellar_mini"]]
-        parts["dep"] = dep
-
-    def cic():
-        return hbm._cic_deposit(parts["pt"].halo_masses, parts["pos"], parts["dep"], lo)
-
-    def sub_grid():
-        mt = (None, None)
-        if inputs.astro_options.USE_MINI_HALOS:
-            mt = hbm._mcrit_grids(z, inputs, set_scaling_constants(z, inputs), s["prev_ts"],
-                                  s["prev_ion"], ics.lowres_vcb)
-        return hbm.compute_fixed_halo_grid(z, inputs, ics.lowres_density,
-                                           m_max=so.SAMPLER_MIN_MASS, mt_a_grid=mt[0],
-                                           mt_m_grid=mt[1], ics=ics)
-
-    def source_box():
-        return xray_source.compute_xray_source_field(
-            z, inputs, s["history"], previous_ionized_box=s["prev_ion"])
-
-    def prep_ts():
-        parts["source"] = source_box()
-
-    def ts_step():
-        return spintemp.compute_spin_temperature(
-            z, inputs, s["pf"], prev_state=s["prev_ts"], prev_redshift=s["prev_z"],
-            initial_conditions=ics, source_box=parts["source"], previous_ionized_box=s["prev_ion"])
-
-    stages = [
-        ("perturb_halo_catalog", None, perturb_catalog, True),
-        ("HaloBox", prep_pt, halobox_whole, True),
-        ("halo properties", prep_pt, props, False),
-        ("halo CIC", prep_cic, cic, False),
-        ("sub-sampler grid", None, sub_grid, False),
-        ("XraySourceBox", None, source_box, True),
-        ("Ts", prep_ts, ts_step, True),
-    ]
-    return stages, parts
-
-
-def _node_stages(inputs, ics, s, tag):
-    """Warm, synchronised per-stage times at one node of a scroll, each stage
-    recomputed from the state the scroll handed it, then its device-busy
-    time from a second, profiled pass.  The Ts step of the density-sourced
-    models is taken twice: building its SFRD tables itself, and with them
-    prefetched (the build is then outside the timed call); with L-INTEGRAL
-    sources the HaloBox and XraySourceBox stages come first (see
-    `_fixed_halos_stages`).  Returns the stages as (name, prepare, fn,
-    summed into the node)."""
-    import py21cmfast_torch as p21
-    from py21cmfast_torch.models import spintemp
-
-    def prefetch_now(z):
-        spintemp.prefetch_sfrd_tables(z, inputs)
-        for fut in list(spintemp._SFRD_PREFETCH["futs"].values()):
-            fut.result()
-
-    z = s["z"]
-    mo = inputs.matter_options
-    sampler = mo.source_model_uses_halo_sampler
-    lagrangian = mo.source_model_uses_lagrangian_grids
-    parts = {}
-
-    def ts_step():
-        return spintemp.compute_spin_temperature(
-            z, inputs, s["pf"], prev_state=s["prev_ts"], prev_redshift=s["prev_z"],
-            initial_conditions=ics, previous_ionized_box=s["prev_ion"])
-
-    stages = [("perturb", None, lambda: p21.perturb_field(z, inputs, ics), True)]
-    if sampler:
-        lagr_stages, parts = _discrete_halos_stages(inputs, ics, s, z)
-        stages += lagr_stages
-    elif lagrangian:
-        lagr_stages, parts = _fixed_halos_stages(inputs, ics, s, z)
-        stages += lagr_stages
-    else:
-        stages += [
-            ("Ts (builds its tables)", None, ts_step, False),
-            ("Ts (tables prefetched)", lambda: prefetch_now(z), ts_step, True),
-        ]
-    stages += [
-        ("ionize", None, lambda: p21.compute_ionization_field(
-            z, inputs, s["pf"], previous_ionized_box=s["prev_ion"], spin_temp=s["ts"],
-            prev_redshift=s["prev_z"], previous_perturbed_field=s.get("prev_pf"),
-            vcb_box=ics.lowres_vcb, halobox=s.get("halobox")), True),
-        ("Tb", None, lambda: p21.brightness_temperature(
-            inputs, s["ion"], s["pf"], spin_temp=s["ts"]), True),
-    ]
-    walls, busies = [], []
-    for name, prepare, fn, summed in stages:
-        if prepare:
-            prepare()
-        _, wall = _sync_time(fn)
-        if prepare:
-            prepare()
-        busy = _device_busy_ms(fn)
-        busy_txt = (
-            "device busy not measured (the profiler saw no device activity)" if busy is None
-            else f"device busy {busy[0]:.3f} ms ({100 * busy[0] / (wall * 1e3):.1f}% of the "
-                 f"unprofiled wall), top kernels {busy[1]}"
-        )
-        print(f"[{tag}] z={z:.3f} {name}: {wall * 1e3:.2f} ms wall; {busy_txt}")
-        if summed:
-            walls.append(wall * 1e3)
-            busies.append(0.0 if busy is None else busy[0])
-    summed = ", ".join(name for name, _, _, on in stages if on)
-    print(f"[{tag}] z={z:.3f} node of {summed}: {sum(walls):.2f} ms wall, {sum(busies):.3f} ms "
-          f"device busy ({100 * sum(busies) / sum(walls):.1f}%)")
-    if sampler:
-        prepare = next(st[1] for st in stages if st[0] == "halo CIC")
-        prepare()
-        ms = _event_median_ms(lambda: next(st[2] for st in stages if st[0] == "halo CIC")(), reps=10)
-        print(f"[{tag}] z={z:.3f} halo CIC ({len(parts['dep'])} property fields of "
-              f"{parts['pt'].n_halos} halos onto {inputs.simulation_options.lowres_shape}, 8 CIC "
-              f"corners each): {ms:.3f} ms a call (CUDA events, median of 10)")
-        parts.clear()
-    elif lagrangian:
-        n_props = len(parts["scatter"][0])
-        ms = _event_median_ms(lambda: stages[4][2](), reps=10)
-        print(f"[{tag}] z={z:.3f} _displace_grids ({n_props} property grids of "
-              f"{inputs.simulation_options.lowres_shape}, 8 CIC corners each): {ms:.3f} ms a call "
-              f"(CUDA events, median of 10)")
-        parts.clear()
-    return stages
-
-
-def scroll_stage_phase(inputs, ics, samples):
-    """Per-stage times at three nodes of the scroll, then where the host's
-    time goes in the last node's Ts and ionize steps (cProfile)."""
-    import cProfile
-    import pstats
-
-    for s in samples:
-        stages = _node_stages(inputs, ics, s, "scroll-stages")
-    z = samples[-1]["z"]
-    for name, prepare, fn, _ in stages[2:4]:
-        if prepare:
-            prepare()
-        prof = cProfile.Profile()
-        _sync_time(lambda: prof.runcall(fn))
-        st = pstats.Stats(prof)
-        total = st.total_tt
-        top = sorted(st.stats.items(), key=lambda kv: -kv[1][3])[:60]
-        ours = [(f"{k[0].rsplit('/', 1)[-1]}:{k[2]}", round(1e3 * v[3], 1)) for k, v in top
-                if "py21cmfast_torch" in k[0]][:8]
-        print(f"[scroll-host] z={z:.3f} {name}: {1e3 * total:.1f} ms under cProfile; cumulative "
-              f"ms by function of the package: {ours}")
 
 
 def _tracked_lightconer(inputs):
@@ -1726,9 +1259,9 @@ def sampler_cores_phase():
             for dev in ("cpu", "cuda"):
                 md = masses.to(dev)
                 cond_t, m_tgt, n_exp, _ = halos._descendant_conditions(inp, h, md)
-                (rows, m), t = _sync_time(lambda: chunk(inp, h, md, cond_t, m_tgt, n_exp, None, dev))
-                out[dev] = (rows.cpu(), m.cpu().double(), t)
-            (rc, mc, tc), (rg, mg, tg) = out["cpu"], out["cuda"]
+                rows, m = chunk(inp, h, md, cond_t, m_tgt, n_exp, None, dev)
+                out[dev] = (rows.cpu(), m.cpu().double())
+            (rc, mc), (rg, mg) = out["cpu"], out["cuda"]
             same = torch.equal(rc, rg)
             if method == "PARTITION":
                 rel = ((mg - mc).abs() / mc).max().item() if same and mc.numel() else float("inf")
@@ -1745,7 +1278,7 @@ def sampler_cores_phase():
                        f"{q99:.2e} (limit {SPLIT_MASS_REL_99:.0e}), max {top:.2e} (limit "
                        f"{SPLIT_MASS_REL_MAX:.0e})")
             print(f"[samplers-small] {method} core, {n} descendants z={z} -> {z + 0.3}: "
-                  f"{rc.numel()} progenitors; {txt}; {tg:.3f} s on the card, {tc:.3f} s on the CPU")
+                  f"{rc.numel()} progenitors; {txt}")
             if not ok:
                 raise AssertionError(f"the {method} core on the card disagrees with the CPU")
     finally:
@@ -1778,8 +1311,8 @@ def _one_realization(cals):
             R_BUBBLE_MAX=15.0 if inputs.astro_options.uses_recombination
             else inputs.astro_params.R_BUBBLE_MAX).full_hash)
         if key not in cals:
-            cals[key] = _sync_time(lambda: calibrate(inputs, z_ana, q_ana, device=device))
-        return cals[key][0]
+            cals[key] = calibrate(inputs, z_ana, q_ana, device=device)
+        return cals[key]
 
     ics_module.compute_initial_conditions = shared_ics
     photoncons.calibrate_photon_cons = once
@@ -1882,8 +1415,6 @@ def photoncons_small_phase():
             _same_states(f"{pc} coeval", {dev: coeval.setup_photon_cons(inp, device=dev)
                                           for dev in ("cpu", "cuda")})
             _card_vs_cpu_coeval(pc, nodes=True, **over)
-    for (dev, _), (_, t) in cals.items():
-        print(f"[photoncons-small] the calibration on the {dev}: {t:.2f} s")
     if len(cals) != 2:
         raise AssertionError(f"expected one calibration box a device, got {len(cals)}")
 
@@ -1899,32 +1430,31 @@ def slice_small_phase():
 
 HEADLINE_SEED = 3
 HEADLINE_Z_END = 5.0
-# phase 12 runs the headline's ladder down to z=8 only (72 of its 92 nodes):
-# the depth cut that keeps the whole script within its time once phases 4h
-# and 13-15 joined it
+# the depth cuts that keep the whole script within its time: phases 12 and 18
+# run the headline's ladder down to z=8 (72 of its 92 nodes), phases 10, 11,
+# 13 and 16 down to z=15 (42 nodes)
 CUT_Z_END = 8.0
-# phases 10, 11, 13 and 16 run the headline's box and ladder down to z=15
-# (42 nodes), and phase 18 down to z=8: the depth cuts that keep the whole
-# script within 1200 s on the slower cards once phase 18 joined it
 SHORT_Z_END = 15.0
-# MINIMIZE_MEMORY stays on in the headline phases, as in every earlier run of
-# them, so that their numbers compare from one version to the next; bench.py
-# (and bench_torch.py's full768) turn it on only at DIM >= 4 HII_DIM
+# MINIMIZE_MEMORY is on in every headline phase; bench.py turns it on only at
+# DIM >= 4 HII_DIM, and the benchmark's 768^3 cells run with it off, so phase
+# 9 is where the MINIMIZE_MEMORY path runs at ratio 3 (phase 18: ratio 4)
 HEADLINE_BOX = dict(HII_DIM=256, DIM=768, BOX_LEN=384.0, Z_HEAT_MAX=35.0, ZPRIME_STEP_FACTOR=1.02,
                     MINIMIZE_MEMORY=True)
+# phase 18: the reference's own DIM = 4 HII_DIM ratio (bench.py's full1024)
+FAITHFUL_DIM = 1024
 
 
-def _headline_inputs():
+def _headline_inputs(dim=HEADLINE_BOX["DIM"], z_end=HEADLINE_Z_END):
     """The repo's headline lightcone, bench.py's physics (bench.py:73-91)
-    with MINIMIZE_MEMORY on: 256^3 at 1.5 Mpc cells with a 768^3 hires grid,
-    E-INTEGRAL sources, USE_TS_FLUCT, inhomogeneous recombinations, 92 nodes
-    from z=35.37 to z=5."""
+    with MINIMIZE_MEMORY on: 256^3 at 1.5 Mpc cells with a `dim`^3 hires
+    grid, E-INTEGRAL sources, USE_TS_FLUCT, inhomogeneous recombinations,
+    nodes from z=35.37 down to `z_end` (92 to z=5)."""
     import py21cmfast_torch as p21
 
     return p21.InputParameters(random_seed=HEADLINE_SEED).evolve_input_structs(
         SOURCE_MODEL="E-INTEGRAL", USE_TS_FLUCT=True, RECOMB_MODEL="inhomogeneous",
-        R_BUBBLE_MAX=50.0, USE_EXP_FILTER=False, CELL_RECOMB=False, **HEADLINE_BOX,
-    ).with_logspaced_redshifts(HEADLINE_Z_END)
+        R_BUBBLE_MAX=50.0, USE_EXP_FILTER=False, CELL_RECOMB=False, **{**HEADLINE_BOX, "DIM": dim},
+    ).with_logspaced_redshifts(z_end)
 
 
 def _minihalo_headline_inputs():
@@ -1949,192 +1479,60 @@ def _fixed_halos_headline_inputs():
     ).evolve_input_structs(**HEADLINE_BOX).with_logspaced_redshifts(SHORT_Z_END)
 
 
-def _moved(struct, device):
-    """A copy of an output struct with its tensors on `device`."""
-    import dataclasses
-
-    import torch
-
-    if struct is None:
-        return None
-    return dataclasses.replace(struct, **{
-        k: v.to(device) for k, v in vars(struct).items() if isinstance(v, torch.Tensor)})
-
-
-def _without_stacks(ion):
-    """The IonizedBox without its minihalo Nion stacks."""
-    import dataclasses
-
-    return dataclasses.replace(ion, unnormalised_nion=None, unnormalised_nion_mini=None)
-
-
-def _counting_syncs(fn):
-    """Run `fn` under torch.cuda.set_sync_debug_mode("warn"): its result and
-    the host synchronisations it made, counted by the source line that made
-    them."""
-    import collections
-    import warnings
-
-    import torch
-
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            out = fn()
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-    where = collections.Counter(
-        f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
-        if "synchroniz" in str(w.message))
-    return out, where
-
-
-def lightcone_phase(kernels, inputs, ics, ics_s, tag, path, sample_z, setup_launches=None,
-                    keep_tb_at=None, count_syncs_at=None, ts_kernels=None):
+def lightcone_phase(kernels, inputs, ics, tag, path, setup_launches=None, keep_tb_at=None,
+                    ts_kernels=None):
     """A full-size lightcone through generate_lightcone with dvdr and RSDs,
     from ICs computed before (as bench.py hands them in); launch counts zeroed
     just before and read just after (one deposit launch per node, and
     `setup_launches()` more where the run's setup deposits too; two Ts shell
     kernel launches a shell the kernels took, which `ts_kernels` says they
-    do or do not).  Then the
-    finalization's device-busy times and the stages of the nodes nearest each
-    of `sample_z`, recomputed from the state the scroll handed them; that
-    state is kept on the host meanwhile, so that it adds nothing to the run's
-    peak memory.  Returns the nodes, their <xH> and <Tb>, the global xH the
-    cone recorded, the seconds of each node and the peak memory; with
-    `keep_tb_at` also a copy of the HII_DIM slices of the finished Tb cone
-    centred nearest that redshift, on the card, with its redshift and box
-    lengths.  With `count_syncs_at`, the host synchronisations that the
-    driver makes inside each of the three nodes around that redshift are
-    counted (torch.cuda.set_sync_debug_mode) and printed."""
+    do or do not).  Every node is yielded in order with finite fields on the
+    card, the cone is fully written and finite, and the global xH falls.
+    Returns the nodes, their <xH> and <Tb> and the global xH the cone
+    recorded; with `keep_tb_at` also a copy of the HII_DIM slices of the
+    finished Tb cone centred nearest that redshift, on the card, with its
+    redshift and box lengths."""
     import torch
 
     import py21cmfast_torch as p21
-    from py21cmfast_torch import rsds
-    from py21cmfast_torch.drivers.coeval import _slim_chain_ion, _slim_chain_pf
-    from py21cmfast_torch.models import xray_source
     from py21cmfast_torch.ops import deposit
 
     so = inputs.simulation_options
     mini = inputs.astro_options.USE_MINI_HALOS
     lagrangian = inputs.matter_options.source_model_uses_lagrangian_grids
     nodes = list(inputs.node_redshifts)
-    sample_at = sorted({int(np.argmin(np.abs(np.asarray(nodes) - z))) for z in sample_z})
     lcr, written = _tracked_lightconer(inputs)
     print(f"[{tag}] HII_DIM={so.HII_DIM} DIM={so.DIM} BOX_LEN={so.BOX_LEN}, seed "
           f"{inputs.random_seed}: {len(nodes)} nodes {nodes[0]:.3f} -> {nodes[-1]:.3f}, "
-          f"{lcr.n_slices} slices; ICs {ics_s:.3f} s (first call)")
-
-    # the finalization's two steps, timed where the driver calls them; their
-    # inputs are kept for the profiled pass
-    final = {}
-
-    def timed(name, fn):
-        def run(*a, **kw):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*a, **kw)
-            torch.cuda.synchronize()
-            final[name] = (time.perf_counter() - t0, fn, a, kw)
-            return out
-        return run
-
-    steps = {"dvdr": "include_dvdr_in_tau21", "RSDs": "apply_rsds"}
-    originals = {name: getattr(rsds, attr) for name, attr in steps.items()}
-    # L-INTEGRAL: generate_coeval's HaloBox history as the sampled nodes'
-    # source boxes read it (grids the scroll holds anyway, kept for the stages)
-    histories = {}
-    source_field = xray_source.compute_xray_source_field
-    sample_zs = {nodes[i] for i in sample_at}
-
-    def recorded_source(z, inputs_, halobox_nodes, *a, **kw):
-        if z in sample_zs:
-            histories[z] = list(halobox_nodes)
-        return source_field(z, inputs_, halobox_nodes, *a, **kw)
-
-    # sampled halos: the sampled nodes' catalogs, kept on the host
-    from py21cmfast_torch.models import halos
-    catalogs = {}
-    perturb_catalog = halos.perturb_halo_catalog
-
-    def recorded_catalog(z, inputs_, ics_, catalog, **kw):
-        if z in sample_zs:
-            catalogs[z] = _moved(catalog, "cpu")
-        return perturb_catalog(z, inputs_, ics_, catalog, **kw)
+          f"{lcr.n_slices} slices")
 
     wrappers = {"cic_deposit_swept": deposit.cic_deposit_swept}
-    torch.cuda.reset_peak_memory_stats()
     for w in wrappers.values():
         w.launches = 0
     shells0 = _ts_shell_zero()
-    for name, attr in steps.items():
-        setattr(rsds, attr, timed(name, originals[name]))
-    xray_source.compute_xray_source_field = recorded_source
-    halos.perturb_halo_catalog = recorded_catalog
-    seconds, xh, tb, mini_means, samples, prev, lc = [], [], [], [], {}, None, None
-    count_at = set()
-    if count_syncs_at is not None:
-        i_c = int(np.argmin(np.abs(np.asarray(nodes) - count_syncs_at)))
-        count_at = {i_c - 1, i_c, i_c + 1}
-    syncs = {}
-    try:
-        steps_iter = p21.generate_lightcone(
+    xh, tb, mini_means, lc = [], [], [], None
+    for i, (z, cv, lc) in enumerate(p21.generate_lightcone(
             inputs, lightconer=lcr, initial_conditions=ics,
-            include_dvdr_in_tau21=True, apply_rsds=True)
-        torch.cuda.synchronize()
-        t_start = t0 = time.perf_counter()
-        for i in range(len(nodes) + 1):
-            if i in count_at:
-                step, syncs[i] = _counting_syncs(lambda: next(steps_iter))
-            else:
-                step = next(steps_iter)
-            z, cv, lc = step
-            del step
-            torch.cuda.synchronize()
-            if z is None:
-                t_final = time.perf_counter() - t0
-                break
-            seconds.append(time.perf_counter() - t0)
-            if z != nodes[i]:
-                raise AssertionError(f"node {i}: yielded z={z}, expected {nodes[i]}")
-            _check_fields(z, so.lowres_shape, cv.perturbed_field, cv.halobox, cv.spin_temp,
-                          cv.ionized_box, cv.brightness_temperature)
-            if lagrangian and cv.halobox is None:
-                raise AssertionError(f"node {i}: no HaloBox")
-            xh.append(cv.neutral_fraction.double().mean().item())
-            tb.append(cv.brightness_temp.double().mean().item())
+            include_dvdr_in_tau21=True, apply_rsds=True)):
+        if z is None:
+            break
+        if i >= len(nodes) or z != nodes[i]:
+            raise AssertionError(f"node {i}: yielded z={z}, expected {nodes[i:i + 1]}")
+        _check_fields(z, so.lowres_shape, cv.perturbed_field, cv.halobox, cv.spin_temp,
+                      cv.ionized_box, cv.brightness_temperature)
+        if lagrangian and cv.halobox is None:
+            raise AssertionError(f"node {i}: no HaloBox")
+        xh.append(cv.neutral_fraction.double().mean().item())
+        tb.append(cv.brightness_temp.double().mean().item())
+        if mini:
             ion = cv.ionized_box
-            if mini:
-                mini_means.append((cv.spin_temp.J_21_LW.double().mean().item(),
-                                   float(ion.log10_Mturnover_ave), float(ion.log10_Mturnover_MINI_ave)))
-            if i in sample_at:
-                samples[i] = dict(
-                    z=z, pf=_moved(cv.perturbed_field, "cpu"), ts=_moved(cv.spin_temp, "cpu"),
-                    ion=_moved(_without_stacks(ion), "cpu"), prev_ts=_moved(prev[0], "cpu"),
-                    prev_ion=_moved(prev[1], "cpu"), prev_pf=_moved(prev[2], "cpu"), prev_z=prev[3],
-                    halobox=_moved(cv.halobox, "cpu"), history=histories.pop(z, None),
-                    catalog=catalogs.pop(z, None))
-            # what the next node's stages read, its Nion stacks only if it is sampled
-            prev_ion = _slim_chain_ion(ion, keep_xh=cv.halobox is not None)
-            prev = (cv.spin_temp,
-                    prev_ion if i + 1 in sample_at else _without_stacks(prev_ion),
-                    _slim_chain_pf(cv.perturbed_field, needed=mini), z)
-            del ion, prev_ion
-            t0 = time.perf_counter()
-        total = time.perf_counter() - t_start
-    finally:
-        for name, attr in steps.items():
-            setattr(rsds, attr, originals[name])
-        xray_source.compute_xray_source_field = source_field
-        halos.perturb_halo_catalog = perturb_catalog
+            mini_means.append((cv.spin_temp.J_21_LW.double().mean().item(),
+                               float(ion.log10_Mturnover_ave), float(ion.log10_Mturnover_MINI_ave)))
     launches = {name: w.launches for name, w in wrappers.items()}
     _ts_shell_read(path, shells0, taken=ts_kernels)
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    del prev, cv
 
-    if len(seconds) != len(nodes):
-        raise AssertionError(f"{len(seconds)} nodes yielded of {len(nodes)}")
+    if len(xh) != len(nodes):
+        raise AssertionError(f"{len(xh)} nodes yielded of {len(nodes)}")
     for k in kernels:
         k["launches_by_path"][path] = launches[k["name"]]
         k["launches"] = sum(k["launches_by_path"].values())
@@ -2143,28 +1541,7 @@ def lightcone_phase(kernels, inputs, ics, ics_s, tag, path, sample_z, setup_laun
     expected = len(nodes) + (setup_launches() if setup_launches else 0)
     if launches["cic_deposit_swept"] != expected:
         raise AssertionError(f"expected {expected} deposit launches in the {tag} lightcone, got {launches}")
-
-    later = np.array(seconds[1:])
-    print(f"[{tag}] {len(nodes)} nodes in {total - t_final:.2f} s and the finalization "
-          f"{t_final:.2f} s ({total:.2f} s in all) on the card: first node {seconds[0]:.3f} s, then "
-          f"median {np.median(later):.4f} s a node (min {later.min():.4f}, max {later.max():.4f}); "
-          f"launches {launches}; peak memory {peak:.3f} GiB")
-    for i, where in sorted(syncs.items()):
-        print(f"[{tag}] node {i} (z={nodes[i]:.4f}, {seconds[i]:.4f} s): {sum(where.values())} host "
-              f"synchronisations inside the driver, by line {dict(where.most_common())}")
-    for name in steps:
-        wall, fn, a, kw = final[name]
-        busy = _device_busy_ms(lambda: fn(*a, **kw))
-        busy_txt = ("device busy not measured (the profiler saw no device activity)" if busy is None
-                    else f"device busy {busy[0]:.3f} ms, top kernels {busy[1]}")
-        print(f"[{tag}] finalization {name}: {wall:.3f} s wall; {busy_txt}")
-    base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    wall, fn, a, kw = final["RSDs"]
-    fn(*a, **kw)
-    print(f"[{tag}] the RSD step's scratch above what it is handed: "
-          f"{(torch.cuda.max_memory_allocated() - base) / 2**30:.3f} GiB")
-    del final, a, kw
+    print(f"[{tag}] {len(nodes)} nodes on the card; launches {launches}")
 
     cone = lc.lightcones
     shape = (so.HII_DIM, so.HII_DIM, len(lcr.lc_distances))
@@ -2202,72 +1579,44 @@ def lightcone_phase(kernels, inputs, ics, ics_s, tag, path, sample_z, setup_laun
                     chunk_lens=(so.box_len, so.box_len, float(n * (dist[1] - dist[0]))))
     del lc, cone
     torch.cuda.empty_cache()
-    for i in sample_at:
-        s = {k: _moved(v, "cuda") if k not in ("z", "prev_z", "history") else v
-             for k, v in samples.pop(i).items()}
-        _node_stages(inputs, ics, s, f"{tag}-stages")
-        del s
-        torch.cuda.empty_cache()
-    return dict(nodes=nodes, xh=xh, tb=tb, gxh=np.asarray(gxh), seconds=seconds, peak=peak, **kept)
+    return dict(nodes=nodes, xh=xh, tb=tb, gxh=np.asarray(gxh), **kept)
 
 
 def headline_phase(kernels, headline):
-    """Phase 9: the headline lightcone from the ICs phase 3 computed; the
-    stages of the node nearest z=8."""
-    inputs, ics, ics_s = headline
-    return lightcone_phase(kernels, inputs, ics, ics_s, "headline", "lightcone", (8.0,),
-                           keep_tb_at=8.0, count_syncs_at=8.0, ts_kernels=True)
+    """Phase 9: the headline lightcone from the ICs phase 3 computed."""
+    inputs, ics = headline
+    return lightcone_phase(kernels, inputs, ics, "headline", "lightcone", keep_tb_at=8.0,
+                           ts_kernels=True)
 
 
 def minihalo_headline_phase(kernels):
-    """Phase 10: the Munoz21 lightcone at the headline's box and ladder.  Its
-    ICs (with the v_cb box) are computed and timed first, then the v_cb box
-    alone, warm; the stages of its last node (SHORT_Z_END)."""
+    """Phase 10: the Munoz21 lightcone at the headline's box and ladder,
+    after a check of its ICs' v_cb box."""
     import torch
 
     import py21cmfast_torch as p21
-    from py21cmfast_torch.models import ics as ics_module
-    from py21cmfast_torch.ops import fft
 
     inputs = _minihalo_headline_inputs()
     so = inputs.simulation_options
-    torch.cuda.reset_peak_memory_stats()
-    ics, ics_s = _sync_time(lambda: p21.compute_initial_conditions(inputs))
-    ics_peak = torch.cuda.max_memory_allocated() / 2**30
-    d_k = fft.rfft3(ics.hires_density)
-    ics_module.compute_vcb_box(inputs, d_k)
-    vcb, vcb_s = _sync_time(lambda: ics_module.compute_vcb_box(inputs, d_k))
-    err = (vcb - ics.lowres_vcb).abs().max().item()
-    del d_k, vcb
-    torch.cuda.empty_cache()
+    ics = p21.compute_initial_conditions(inputs)
     v = ics.lowres_vcb
-    print(f"[munoz21] ICs at {so.hires_shape} -> {so.lowres_shape} with the v_cb box: {ics_s:.3f} s "
-          f"(first call, synchronised), peak memory {ics_peak:.3f} GiB; the v_cb box alone "
-          f"{vcb_s * 1e3:.2f} ms (warm, from the hires density's transform; max-abs {err:.3e} from "
-          f"the ICs' own); |v_cb| mean {v.double().mean().item():.4f} km/s, rms "
-          f"{v.double().square().mean().sqrt().item():.4f}, min {v.min().item():.4f}, max "
-          f"{v.max().item():.4f}")
+    print(f"[munoz21] ICs at {so.hires_shape} -> {so.lowres_shape} with the v_cb box: |v_cb| mean "
+          f"{v.double().mean().item():.4f} km/s, rms {v.double().square().mean().sqrt().item():.4f}, "
+          f"min {v.min().item():.4f}, max {v.max().item():.4f}")
     if tuple(v.shape) != so.lowres_shape or not bool(torch.isfinite(v).all()) or not v.min().item() >= 0:
         raise AssertionError("the Munoz21 v_cb box is malformed")
-    lightcone_phase(kernels, inputs, ics, ics_s, "munoz21", "minihalo_lightcone", (SHORT_Z_END,),
-                    ts_kernels=False)
+    lightcone_phase(kernels, inputs, ics, "munoz21", "minihalo_lightcone", ts_kernels=False)
 
 
 def fixed_halos_headline_phase(kernels):
-    """Phase 11: the fixed-halos lightcone at the headline's box and ladder,
-    from its ICs computed and timed first; the stages of its last node
-    (SHORT_Z_END)."""
-    import torch
-
+    """Phase 11: the fixed-halos lightcone at the headline's box and ladder."""
     import py21cmfast_torch as p21
 
     inputs = _fixed_halos_headline_inputs()
     if inputs.matter_options.SOURCE_MODEL != "L-INTEGRAL":
         raise AssertionError(f"{FIXED_HALOS_TEMPLATE} does not use L-INTEGRAL sources")
-    ics, ics_s = _sync_time(lambda: p21.compute_initial_conditions(inputs))
-    torch.cuda.empty_cache()
-    lightcone_phase(kernels, inputs, ics, ics_s, "fixed-halos", "fixed_halos_lightcone", (SHORT_Z_END,),
-                    ts_kernels=False)
+    ics = p21.compute_initial_conditions(inputs)
+    lightcone_phase(kernels, inputs, ics, "fixed-halos", "fixed_halos_lightcone", ts_kernels=False)
 
 
 # phase 12: the latest-discrete template at its 1.5 Mpc cell and DIM/HII_DIM = 3
@@ -2319,34 +1668,17 @@ def _octave_expectation(inputs, z, h, edges):
 
 
 @contextlib.contextmanager
-def _timed_chain():
-    """Time generate_coeval's catalog chain while the block runs: one
-    synchronised wall from the first catalog's start to the last one on the
-    host, and by step (DexM, the grid sampler, the progenitors of each node,
-    the moves between the card and the host), with the halo counts, the host
-    bytes of the waiting catalogs, the lowest node's grid sample and its
-    tables (`gate`), and the first progenitor step's descendant and
-    progenitor masses (`first_step`).  Yields the record."""
-    import torch
-
-    from py21cmfast_torch import outputs
+def _recorded_chain():
+    """Record what the gates read of generate_coeval's catalog chain while
+    the block runs: the lowest node's grid sample and its tables (`gate`),
+    and the first progenitor step's descendant and progenitor masses
+    (`first_step`).  Yields the record."""
     from py21cmfast_torch.models import halos
 
-    rec = dict(walls={"DexM": [], "grid sampler": [], "progenitors": [], "to card": [],
-                      "to host": []},
-               counts={}, host_bytes=[0], gate={}, chain_wall={}, first_step={})
-    walls, gate, chain_wall = rec["walls"], rec["gate"], rec["chain_wall"]
+    rec = dict(gate={}, first_step={})
+    gate = rec["gate"]
     originals = {name: getattr(halos, name) for name in (
-        "dexm_halo_grid", "sample_halo_grid", "grid_sampler_tables", "_sample_progenitors",
-        "determine_halo_catalog")}
-    catalog_to = outputs.HaloCatalog.to
-
-    def timed(key, fn):
-        def run(*a, **kw):
-            out, t = _sync_time(lambda: fn(*a, **kw))
-            walls[key].append(t)
-            return out
-        return run
+        "sample_halo_grid", "grid_sampler_tables", "_sample_progenitors")}
 
     def tables(z, *a, **kw):
         gate["h"] = originals["grid_sampler_tables"](z, *a, **kw)
@@ -2354,72 +1686,25 @@ def _timed_chain():
         return gate["h"]
 
     def sampled(*a, **kw):
-        masses, pos = timed("grid sampler", originals["sample_halo_grid"])(*a, **kw)
+        masses, pos = originals["sample_halo_grid"](*a, **kw)
         gate["masses"] = masses
         return masses, pos
 
     def progenitors(z, inputs_, prev_cat, *a, **kw):
-        cat = timed("progenitors", originals["_sample_progenitors"])(z, inputs_, prev_cat, *a, **kw)
+        cat = originals["_sample_progenitors"](z, inputs_, prev_cat, *a, **kw)
         if not rec["first_step"]:
             rec["first_step"].update(z_prev=float(prev_cat.redshift), z=z,
                                      desc=prev_cat.halo_masses.cpu(), prog=cat.halo_masses.cpu())
         return cat
 
-    def determine(z, *a, **kw):
-        if not chain_wall:
-            torch.cuda.synchronize()
-            chain_wall["start"] = time.perf_counter()
-        cat = originals["determine_halo_catalog"](z, *a, **kw)
-        rec["counts"][z] = cat.n_halos
-        return cat
-
-    def moved(self, device):
-        out, t = _sync_time(lambda: catalog_to(self, device))
-        if torch.device(device).type == "cpu":
-            walls["to host"].append(t)
-            chain_wall["end"] = time.perf_counter()
-            rec["host_bytes"][0] += sum(v.numel() * v.element_size() for v in vars(out).values()
-                                        if isinstance(v, torch.Tensor))
-        else:
-            walls["to card"].append(t)
-        return out
-
-    halos.dexm_halo_grid = timed("DexM", originals["dexm_halo_grid"])
     halos.sample_halo_grid = sampled
     halos.grid_sampler_tables = tables
     halos._sample_progenitors = progenitors
-    halos.determine_halo_catalog = determine
-    outputs.HaloCatalog.to = moved
     try:
         yield rec
     finally:
         for name, fn in originals.items():
             setattr(halos, name, fn)
-        outputs.HaloCatalog.to = catalog_to
-
-
-def _print_chain(tag, rec):
-    """Print a `_timed_chain` record: the chain's wall and its parts, the
-    halo counts and the host memory."""
-    import resource
-
-    walls, counts = rec["walls"], rec["counts"]
-    zs = sorted(counts)
-    z8 = min(zs, key=lambda z: abs(z - 8.0))
-    prog = np.array(walls["progenitors"])
-    parts = sum(sum(v) for k, v in walls.items() if k != "to card")
-    wall = rec["chain_wall"]["end"] - rec["chain_wall"]["start"]
-    print(f"[{tag}] catalog chain over {len(zs)} nodes: {wall:.2f} s wall before the "
-          f"scroll, from the first catalog's start to the last one on the host; its timed parts "
-          f"{parts:.2f} s, the host work between them {wall - parts:.2f} s; DexM {sum(walls['DexM']):.3f} s, grid sampler {sum(walls['grid sampler']):.3f} s, "
-          f"progenitors {prog.sum():.2f} s ({len(prog)} steps: median {np.median(prog):.4f} s, max "
-          f"{prog.max():.4f} s), card -> host {sum(walls['to host']):.2f} s; host -> card at the "
-          f"nodes {sum(walls['to card']):.2f} s (median {np.median(walls['to card']):.4f} s)")
-    print(f"[{tag}] halos at z={zs[0]}: {counts[zs[0]]}, at z={z8:.4f}: {counts[z8]}, at "
-          f"z={zs[-1]:.3f}: {counts[zs[-1]]}; {sum(counts.values())} in all {len(zs)} catalogs, which "
-          f"held {rec['host_bytes'][0] / 2**30:.3f} GiB of host memory while they waited; the process's "
-          f"peak resident memory {resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.3f} GiB")
-    return wall, prog
 
 
 def discrete_headline_phase(kernels):
@@ -2427,14 +1712,10 @@ def discrete_headline_phase(kernels):
     (CHMF-SAMPLER, MASS-LIMITED progenitors, USE_TS_FLUCT, INHOMOGENEOUS)
     at 128^3 / 384^3 in 192 Mpc down the headline's ladder cut to
     CUT_Z_END (72 nodes), from the default CUDA generators, through
-    lightcone_phase.  Its catalog chain is
-    timed whole (one synchronised wall) and by step (DexM, the grid sampler,
-    the progenitors of each node, the moves between the card and the host),
-    with the halo counts and the host
-    memory the waiting catalogs hold.  A statistical gate on the z=8 grid
-    sample: its count within 1% of the expected sum(n_exp) (plus one halo
-    per collapsed cell), and its count in each of 4 mass octaves from
-    SAMPLER_MIN_MASS within 5 sigma of the conditional MF's expectation."""
+    lightcone_phase.  A statistical gate on the z=8 grid sample: its count
+    within 1% of the expected sum(n_exp) (plus one halo per collapsed
+    cell), and its count in each of 4 mass octaves from SAMPLER_MIN_MASS
+    within 5 sigma of the conditional MF's expectation."""
     import torch
 
     import py21cmfast_torch as p21
@@ -2445,13 +1726,11 @@ def discrete_headline_phase(kernels):
     so = inputs.simulation_options
     if not inputs.matter_options.source_model_uses_halo_sampler:
         raise AssertionError(f"{DISCRETE_TEMPLATE} does not sample halos")
-    ics, ics_s = _sync_time(lambda: p21.compute_initial_conditions(inputs))
-    torch.cuda.empty_cache()
+    ics = p21.compute_initial_conditions(inputs)
 
-    with _timed_chain() as chain:
-        lightcone_phase(kernels, inputs, ics, ics_s, "latest-discrete", "discrete_lightcone", (8.0,),
+    with _recorded_chain() as chain:
+        lightcone_phase(kernels, inputs, ics, "latest-discrete", "discrete_lightcone",
                         ts_kernels=False)
-    _print_chain("latest-discrete", chain)
 
     # the statistical gate on the lowest node's grid sample (the collapsed
     # cells' halos last)
@@ -2478,9 +1757,8 @@ def photoncons_headline_phase(kernels, headline, base):
     phase 3 computed, launch counts zeroed just before and read just after:
     one deposit launch a node and one a calibration step.  The headline's
     box and ladder are cut to SHORT_Z_END (42 of its 92 nodes, the slowest
-    50 dropped), which keeps the script within its time since phases 16 and
-    18 joined it.  The calibration (its coevals, their z range and wall, the
-    analytic history beside it), then <xH> and <Tb> at SHORT_Z_END beside
+    50 dropped), which keeps the script within its time.  The calibration's
+    coevals and their z range, then <xH> and <Tb> at SHORT_Z_END beside
     phase 9's (`base`) at its node nearest SHORT_Z_END, from the same seed
     and ICs."""
     import torch
@@ -2489,41 +1767,31 @@ def photoncons_headline_phase(kernels, headline, base):
     from py21cmfast_torch.models import photoncons
     from py21cmfast_torch.ops import deposit
 
-    inputs, ics, _ = headline
+    inputs, ics = headline
     inputs = inputs.evolve_input_structs(PHOTON_CONS_TYPE="Z-PHOTONCONS").with_logspaced_redshifts(
         SHORT_Z_END)
-    setup, calibrate = coeval.setup_photon_cons, photoncons.calibrate_photon_cons
+    calibrate = photoncons.calibrate_photon_cons
     rec = {}
 
-    def timed_setup(inputs_, device="cuda"):
-        state, rec["setup"] = _sync_time(lambda: setup(inputs_, device=device))
-        return state
-
-    def timed_calibration(*a, **kw):
+    def counted_calibration(*a, **kw):
         n0 = deposit.cic_deposit_swept.launches
-        out, rec["calibration"] = _sync_time(lambda: calibrate(*a, **kw))
+        out = calibrate(*a, **kw)
         rec["z_cal"], rec["launches"] = out[0], deposit.cic_deposit_swept.launches - n0
         return out
 
-    coeval.setup_photon_cons = timed_setup
-    photoncons.calibrate_photon_cons = timed_calibration
+    photoncons.calibrate_photon_cons = counted_calibration
     try:
-        run = lightcone_phase(kernels, inputs, ics, headline[2], "z-photoncons",
-                              "photoncons_lightcone", (), setup_launches=lambda: len(rec["z_cal"]),
-                              ts_kernels=True)
+        run = lightcone_phase(kernels, inputs, ics, "z-photoncons", "photoncons_lightcone",
+                              setup_launches=lambda: len(rec["z_cal"]), ts_kernels=True)
     finally:
-        coeval.setup_photon_cons, photoncons.calibrate_photon_cons = setup, calibrate
+        photoncons.calibrate_photon_cons = calibrate
     z_cal = rec["z_cal"]
     if rec["launches"] != len(z_cal):
         raise AssertionError(f"the calibration launched the deposit {rec['launches']} times in "
                              f"{len(z_cal)} steps")
-    state = setup(inputs)
-    later = np.array(run["seconds"][1:])
-    print(f"[z-photoncons] setup {rec['setup']:.2f} s on the first node: the calibration's "
-          f"{len(z_cal)} coevals (256^3 from 768^3 ICs of their own) z {z_cal[0]:.3f} -> "
-          f"{z_cal[-1]:.3f} in {rec['calibration']:.2f} s, the analytic history and deltaz the "
-          f"rest; then median {np.median(later):.4f} s a node (spread {later.min():.4f} - "
-          f"{later.max():.4f}); peak memory {run['peak']:.3f} GiB")
+    state = coeval.setup_photon_cons(inputs)
+    print(f"[z-photoncons] the calibration's {len(z_cal)} coevals (256^3 from 768^3 ICs of their "
+          f"own) z {z_cal[0]:.3f} -> {z_cal[-1]:.3f}")
     zi, j = run["nodes"][-1], int(np.argmin(np.abs(np.asarray(base["nodes"]) - SHORT_Z_END)))
     print(f"[z-photoncons] {len(run['nodes'])} nodes to z={zi:.4f} (computed at "
           f"z={state.adjusted_redshift(zi):.4f}): <xH> {run['xh'][-1]:.6f}, <Tb> {run['tb'][-1]:.5f} "
@@ -2554,8 +1822,7 @@ HALO_PROPS_N = 10_000_000
 def _cli_subprocesses(commands):
     """`python -m py21cmfast_torch <args>` for each of `commands`, each in a
     process of its own, all started together from the checkout's root: for
-    each its exit code, its output and its errors, and the wall of all."""
-    t0 = time.perf_counter()
+    each its exit code, its output and its errors."""
     procs = [subprocess.Popen([sys.executable, "-m", "py21cmfast_torch", *args],
                               cwd=os.path.dirname(os.path.abspath(__file__)),
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
@@ -2567,7 +1834,7 @@ def _cli_subprocesses(commands):
         finally:
             proc.kill()
         outs.append((proc.returncode, out, err))
-    return outs, time.perf_counter() - t0
+    return outs
 
 
 def cli_phase(kernels, base):
@@ -2591,9 +1858,7 @@ def cli_phase(kernels, base):
     from py21cmfast_torch.ops import deposit, ps
 
     commands = (["template", "avail"], ["run", "params", "--template", "latest"])
-    outs, wall = _cli_subprocesses(commands)
-    print(f"[cli] {len(commands)} subprocesses of python -m py21cmfast_torch, run together: "
-          f"{wall:.2f} s")
+    outs = _cli_subprocesses(commands)
     for args, (code, out, err) in zip(commands, outs):
         lines = out.splitlines()
         print(f"[cli] python -m py21cmfast_torch {' '.join(args)}: exit {code}, {len(lines)} "
@@ -2603,27 +1868,20 @@ def cli_phase(kernels, base):
 
     wrappers = {"cic_deposit_swept": deposit.cic_deposit_swept}
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
     out = io.StringIO()
     for w in wrappers.values():
         w.launches = 0
     shells0 = _ts_shell_zero()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     with contextlib.redirect_stdout(out):
         lc = cli.main(CLI_ARGS)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
     launches = {name: w.launches for name, w in wrappers.items()}
     _ts_shell_read("cli_lightcone", shells0, taken=True)
-    peak = torch.cuda.max_memory_allocated() / 2**30
     line = [ln for ln in out.getvalue().splitlines() if ln.startswith("lightcone:")][-1]
     nodes = lc.node_redshifts
     print(f"[cli] 21cmfast-torch {' '.join(CLI_ARGS)}")
     print(f"[cli] its output: {line}")
-    print(f"[cli] {len(nodes)} nodes {nodes[0]:.3f} -> {nodes[-1]:.3f} in {wall:.2f} s on the card "
-          f"(ICs, scroll and finalization; {wall / len(nodes):.3f} s a node in all); launches "
-          f"{launches}; peak memory {peak:.3f} GiB")
+    print(f"[cli] {len(nodes)} nodes {nodes[0]:.3f} -> {nodes[-1]:.3f} on the card; launches "
+          f"{launches}")
     for k in kernels:
         k["launches_by_path"]["cli_lightcone"] = launches[k["name"]]
         k["launches"] = sum(k["launches_by_path"].values())
@@ -2641,14 +1899,13 @@ def cli_phase(kernels, base):
     torch.cuda.empty_cache()
 
     chunk, lens = base["tb_chunk"], base["chunk_lens"]
-    (k_g, p_g, n_g), t_g = _sync_time(lambda: ps.power_spectrum_1d(chunk, lens))
-    cpu_chunk = chunk.cpu()
-    (k_c, p_c, n_c), t_c = _sync_time(lambda: ps.power_spectrum_1d(cpu_chunk, lens))
+    k_g, p_g, n_g = ps.power_spectrum_1d(chunk, lens)
+    k_c, p_c, n_c = ps.power_spectrum_1d(chunk.cpu(), lens)
     good = np.isfinite(p_c) & (n_c > 0)
     rel = np.abs(p_g[good] - p_c[good]) / np.abs(p_c[good])
     print(f"[cli] P(k) of phase 9's Tb cone, {tuple(chunk.shape)} slices centred at "
           f"z={base['chunk_z']:.3f} ({lens[2]:.1f} Mpc along the line of sight), 16 log bins: "
-          f"{t_g * 1e3:.2f} ms on the card, {t_c * 1e3:.2f} ms on the CPU; max rel diff "
+          f"max rel diff "
           f"{rel.max():.3e} (limit {PS_REL:.0e}); P {np.round(p_g[good], 4).tolist()} mK^2 Mpc^3 at "
           f"k {np.round(k_g[good], 4).tolist()} /Mpc")
     if not (good.sum() >= 8 and np.array_equal(n_g, n_c) and np.allclose(k_g[good], k_c[good], rtol=1e-12)
@@ -2667,17 +1924,15 @@ def cli_phase(kernels, base):
     rng = np.random.default_rng(HEADLINE_SEED)
     masses = np.exp(rng.uniform(np.log(1e8), np.log(1e12), HALO_PROPS_N)).astype(np.float32)
     rngs = rng.standard_normal((3, HALO_PROPS_N)).astype(np.float32)
-    props_g, t_g = _sync_time(lambda: cfuncs.convert_halo_properties(disc, 8.0, masses, *rngs))
-    props_c, t_c = _sync_time(
-        lambda: cfuncs.convert_halo_properties(disc, 8.0, masses, *rngs, device="cpu"))
+    props_g = cfuncs.convert_halo_properties(disc, 8.0, masses, *rngs)
+    props_c = cfuncs.convert_halo_properties(disc, 8.0, masses, *rngs, device="cpu")
     errs = {}
     for name, c in props_c.items():
         g = props_g[name]
         scale = np.maximum(np.abs(c), np.finfo(np.float32).tiny)
         errs[name] = float(np.max(np.abs(g.astype(np.float64) - c) / scale))
     print(f"[cli] convert_halo_properties of {HALO_PROPS_N:.0e} masses 1e8-1e12 Msun at z=8 "
-          f"({DISCRETE_TEMPLATE}): {t_g * 1e3:.1f} ms on the card (with the copies), "
-          f"{t_c * 1e3:.1f} ms on the CPU; max rel diff per property "
+          f"({DISCRETE_TEMPLATE}): max rel diff per property "
           f"{ {k: f'{v:.2e}' for k, v in errs.items()} } (limit {HALO_PROPS_REL:.0e})")
     if not all(np.isfinite(props_g[k]).all() for k in props_g) or max(errs.values()) > HALO_PROPS_REL:
         raise AssertionError("the halo properties on the card disagree with the CPU's")
@@ -2727,11 +1982,9 @@ def samplers_headline_phase(kernels):
     12's box down the headline's ladder to SAMPLERS_Z_END, once with PARTITION and once
     with BINARY-SPLIT progenitors, from the default CUDA generators, launch
     counts zeroed just before and read just after (one deposit launch a
-    node).  Each: the catalog chain's wall and its parts (`_timed_chain`),
-    the halo count at SAMPLERS_Z_END, the seconds a node, and a gate on the
-    first progenitor step (from SAMPLERS_Z_END to the next node): its count
-    in each of 4 mass
-    octaves from SAMPLER_MIN_MASS within SAMPLER_OCTAVE_TOL of the
+    node).  Each: every node yielded, finite fields at SAMPLERS_Z_END, and a
+    gate on the first progenitor step (`_recorded_chain`): its count in each
+    of 4 mass octaves from SAMPLER_MIN_MASS within SAMPLER_OCTAVE_TOL of the
     conditional MF's expectation (`_progenitor_octaves`); for the binary
     split the rows that spilled past its 256 progenitors and the branches
     force-saved at its last step."""
@@ -2744,7 +1997,7 @@ def samplers_headline_phase(kernels):
     base = p21.InputParameters.from_template(
         DISCRETE_TEMPLATE, random_seed=HEADLINE_SEED
     ).evolve_input_structs(**DISCRETE_BOX).with_logspaced_redshifts(SAMPLERS_Z_END)
-    ics, ics_s = _sync_time(lambda: p21.compute_initial_conditions(base))
+    ics = p21.compute_initial_conditions(base)
     for method in ("PARTITION", "BINARY-SPLIT"):
         tag = method.lower()
         inputs = base.evolve_input_structs(SAMPLE_METHOD=method)
@@ -2761,24 +2014,17 @@ def samplers_headline_phase(kernels):
         halos._binary_split_kernel = counted
         deposit.cic_deposit_swept.launches = 0
         shells0 = _ts_shell_zero()
-        torch.cuda.reset_peak_memory_stats()
-        seconds = []
+        n_yielded = 0
         try:
-            with _timed_chain() as chain:
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                for cv in p21.generate_coeval(inputs, initial_conditions=ics):
-                    torch.cuda.synchronize()
-                    seconds.append(time.perf_counter() - t0)
-                    t0 = time.perf_counter()
-                    last = cv
+            with _recorded_chain() as chain:
+                for last in p21.generate_coeval(inputs, initial_conditions=ics):
+                    n_yielded += 1
         finally:
             halos._binary_split_kernel = kernel
         launches = deposit.cic_deposit_swept.launches
         _ts_shell_read(f"{tag}_coeval", shells0, taken=False)
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        if len(seconds) != len(nodes) or abs(last.redshift - SAMPLERS_Z_END) > 1e-6:
-            raise AssertionError(f"{method}: {len(seconds)} nodes yielded of {len(nodes)}")
+        if n_yielded != len(nodes) or abs(last.redshift - SAMPLERS_Z_END) > 1e-6:
+            raise AssertionError(f"{method}: {n_yielded} nodes yielded of {len(nodes)}")
         _check_fields(last.redshift, so.lowres_shape, last.perturbed_field, last.halobox,
                       last.spin_temp, last.ionized_box, last.brightness_temperature)
         for k in kernels:
@@ -2786,13 +2032,9 @@ def samplers_headline_phase(kernels):
             k["launches"] = sum(k["launches_by_path"].values())
         if launches != len(nodes):
             raise AssertionError(f"{method}: {launches} deposit launches in {len(nodes)} nodes")
-        wall, prog = _print_chain(tag, chain)
-        later = np.array(seconds[1:])
-        print(f"[{tag}] {len(nodes)} nodes {nodes[0]:.3f} -> {nodes[-1]:.3f} in {sum(seconds):.2f} s "
-              f"(the first with the chain {seconds[0]:.2f} s), then median {np.median(later):.4f} s a "
-              f"node (min {later.min():.4f}, max {later.max():.4f}); <xH> at z={last.redshift:.3f} "
-              f"{last.neutral_fraction.double().mean().item():.6f}; launches {launches}; peak "
-              f"memory {peak:.3f} GiB; ICs {ics_s:.3f} s")
+        print(f"[{tag}] {len(nodes)} nodes {nodes[0]:.3f} -> {nodes[-1]:.3f}; <xH> at "
+              f"z={last.redshift:.3f} {last.neutral_fraction.double().mean().item():.6f}; launches "
+              f"{launches}")
         if method == "BINARY-SPLIT":
             print(f"[{tag}] rows past 256 progenitors (their extra progenitors lost, as in the "
                   f"JAX package): {split['spilled']}; branches force-saved after 48 steps: "
@@ -2828,11 +2070,9 @@ def _global_on_cpu(inputs, path):
     import py21cmfast_torch as p21
 
     torch.set_num_threads(1)
-
-    t0 = time.perf_counter()
     ge = p21.run_global_evolution(inputs, device="cpu")
     with open(path, "wb") as fh:
-        pickle.dump((ge.quantities, time.perf_counter() - t0), fh)
+        pickle.dump(ge.quantities, fh)
 
 
 def start_global_on_cpu():
@@ -2898,20 +2138,20 @@ def global_phase(cpu_run):
     """Phase 15: run_global_evolution on the headline's inputs on the card,
     against the same on the CPU (run beside the card's phases): every
     quantity per node within GLOBAL_REL of its value plus GLOBAL_ABS of the
-    series' largest magnitude; the wall of each."""
+    series' largest magnitude."""
     import pickle
     import shutil
 
     import py21cmfast_torch as p21
 
     inputs = _headline_inputs()
-    ge, wall = _sync_time(lambda: p21.run_global_evolution(inputs))
+    ge = p21.run_global_evolution(inputs)
     proc, path = cpu_run
     proc.join()
     if proc.exitcode != 0:
         raise AssertionError(f"the CPU run of the 0-D history failed (exit code {proc.exitcode})")
     with open(path, "rb") as fh:
-        quantities, cpu_wall = pickle.load(fh)
+        quantities = pickle.load(fh)
     shutil.rmtree(os.path.dirname(path))
     ok = sorted(quantities) == sorted(ge.quantities)
     errs = {}
@@ -2926,7 +2166,7 @@ def global_phase(cpu_run):
     _global_per_node(inputs, z, quantities, ge.quantities)
     i8 = int(np.argmin(np.abs(z - 8.0)))
     print(f"[global] run_global_evolution on the headline's inputs, {len(z)} nodes {z[0]:.3f} -> "
-          f"{z[-1]:.3f}: {wall:.2f} s on the card, {cpu_wall:.2f} s on the CPU; xH "
+          f"{z[-1]:.3f}: xH "
           f"{ge.quantities['neutral_fraction'][i8]:.6f} and Tb {ge.quantities['brightness_temp'][i8]:.4f} "
           f"mK at z={z[i8]:.4f}; (max rel, at z, max err / max) per quantity "
           f"{{{', '.join(f'{k}: ({v[0]:.2e}, {v[1]:.3f}, {v[2]:.2e})' for k, v in errs.items())}}} "
@@ -2939,7 +2179,7 @@ def global_phase(cpu_run):
 # phase 17: the sharded paths of py21cmfast_torch.parallel on the card.  The
 # card host has one GPU, so 17a runs NCCL with one rank in this process and
 # 17b-17d run two ranks on the one card with gloo, whose collectives go
-# through host memory: their times are not multi-GPU scaling numbers.
+# through host memory.
 
 SHARDED_TIMEOUT = 420.0  # seconds for the ranks of one sharded run
 # the headline's box (bench.py:73-91) at z=8 with a saturated Ts: 17b
@@ -3022,66 +2262,21 @@ def _node_fields(cv):
     return fields
 
 
-@contextlib.contextmanager
-def _timed_parts(walls):
-    """Synchronised walls of the sharded coeval's parts (ICs, perturb, Ts,
-    ionize, Tb) added into `walls`, and of the slab CIC's scatters
-    ("slab CIC": the perturb deposit's, and with halos the painting's)."""
-    import torch
-
-    from py21cmfast_torch.models import brightness, ionization, spintemp
-    from py21cmfast_torch.parallel import driver, perturb
-
-    def timed(key, fn):
-        def run(*a, **kw):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*a, **kw)
-            torch.cuda.synchronize()
-            walls[key] = walls.get(key, 0.0) + time.perf_counter() - t0
-            return out
-        return run
-
-    saved = [(driver, "_sharded_ics"), (driver, "build_sharded_perturb"),
-             (ionization, "compute_ionization_field"), (spintemp, "compute_spin_temperature"),
-             (brightness, "brightness_temperature"), (perturb, "_cic_scatter_buffer")]
-    originals = [getattr(m, n) for m, n in saved]
-    build = driver.build_sharded_perturb
-    driver._sharded_ics = timed("ICs", driver._sharded_ics)
-    driver.build_sharded_perturb = lambda *a, **kw: timed("perturb", build(*a, **kw))
-    ionization.compute_ionization_field = timed("ionize", ionization.compute_ionization_field)
-    spintemp.compute_spin_temperature = timed("Ts", spintemp.compute_spin_temperature)
-    brightness.brightness_temperature = timed("Tb", brightness.brightness_temperature)
-    perturb._cic_scatter_buffer = timed("slab CIC", perturb._cic_scatter_buffer)
-    try:
-        yield walls
-    finally:
-        for (m, n), f in zip(saved, originals):
-            setattr(m, n, f)
-
-
-def _rank_report(mesh, walls, wall, launches):
-    """A rank's report; its collectives are the recorder's totals (a rank's
+def _rank_launches(mesh):
+    """A rank's report: its deposit and Ts shell kernel launches (a rank's
     process runs one job)."""
-    import torch
+    from py21cmfast_torch.ops import deposit, ts_shell
 
-    from py21cmfast_torch.ops import ts_shell
-
-    return dict(rank=mesh.rank, wall=wall, parts=dict(walls), launches=launches,
+    return dict(rank=mesh.rank, launches=deposit.cic_deposit_swept.launches,
                 ts_shell_launches=(ts_shell.ts_shell_reduce.launches
-                                   + ts_shell.ts_shell_accumulate.launches),
-                collective_s=_recorded("spans", "mesh.collective"),
-                collective_calls=_recorded("counters", "mesh.calls"),
-                collective_gib=_recorded("counters", "mesh.bytes") / 2**30,
-                host_copy_gib=_recorded("counters", "mesh.host_bytes") / 2**30,
-                peak_gib=torch.cuda.max_memory_allocated(mesh.device) / 2**30)
+                                   + ts_shell.ts_shell_accumulate.launches))
 
 
 def _sharded_headline_job(mesh):
     """17b / 17e on one rank: run_sharded_coeval of the headline's box at
-    z=8, timed by part; rank 0 then runs the single-device run_coeval of the
-    same seed (the 2LPT source of the whole box, as the sharded ICs take
-    it: the single-device ICs truncate it above 640^3 cells) and compares."""
+    z=8; rank 0 then runs the single-device run_coeval of the same seed (the
+    2LPT source of the whole box, as the sharded ICs take it: the
+    single-device ICs truncate it above 640^3 cells) and compares."""
     import torch
 
     import py21cmfast_torch as p21
@@ -3092,21 +2287,16 @@ def _sharded_headline_job(mesh):
 
     inputs = p21.InputParameters(random_seed=HEADLINE_SEED).evolve_input_structs(
         **SHARDED_HEADLINE)
-    mesh.timed = True
     deposit.cic_deposit_swept.launches = 0
     _ts_shell_zero()
-    torch.cuda.reset_peak_memory_stats(mesh.device)
-    walls = {}
-    with _timed_parts(walls):
-        (out,), wall = _sync_time(lambda: run_sharded_coeval(inputs, [8.0], mesh=mesh))
-    report = _rank_report(mesh, walls, wall, deposit.cic_deposit_swept.launches)
+    (out,) = run_sharded_coeval(inputs, [8.0], mesh=mesh)
+    report = _rank_launches(mesh)
     got = {k: _host(gather_slabs(mesh, v)) for k, v in _node_fields(out).items()}
     del out
     if mesh.rank == 0:
         torch.cuda.empty_cache()
         ics_module._2LPT_MAX_INHBM_CELLS = float("inf")
-        (cv,), single_s = _sync_time(lambda: p21.run_coeval(inputs, [8.0], device=mesh.device))
-        report["single_wall"] = single_s
+        (cv,) = p21.run_coeval(inputs, [8.0], device=mesh.device)
         report["gates"] = _coeval_gates("sharded-headline", 8.0, got,
                                         {k: _host(v) for k, v in _node_fields(cv).items()})
     mesh.barrier()
@@ -3205,8 +2395,6 @@ def _sharded_lightcone_job(mesh):
     fields gathered; rank 0 then runs generate_lightcone of the same seed on
     one device and compares per node and per cone.  The last node's (z=8)
     Ts step is recorded on both runs and compared stage by stage."""
-    import torch
-
     import py21cmfast_torch as p21
     from py21cmfast_torch.models import spintemp
     from py21cmfast_torch.ops import deposit
@@ -3215,10 +2403,8 @@ def _sharded_lightcone_job(mesh):
 
     inputs = p21.InputParameters(random_seed=HEADLINE_SEED).evolve_input_structs(
         **SHARDED_LC).with_logspaced_redshifts(SHARDED_LC_Z_END)
-    mesh.timed = True
     deposit.cic_deposit_swept.launches = 0
     _ts_shell_zero()
-    torch.cuda.reset_peak_memory_stats(mesh.device)
     nodes = []
     scroll = driver.run_sharded_coeval
 
@@ -3228,28 +2414,24 @@ def _sharded_lightcone_job(mesh):
             nodes.append({k: _host(gather_slabs(mesh, v)) for k, v in _node_fields(o).items()})
         return out
 
-    walls = {}
     driver.run_sharded_coeval = kept
     try:
-        with _timed_parts(walls), _last_calls(spintemp, "ts_host_tables", "_ts_cell_update") as rec:
-            lc, wall = _sync_time(lambda: driver.run_sharded_lightcone(inputs, mesh=mesh))
+        with _last_calls(spintemp, "ts_host_tables", "_ts_cell_update") as rec:
+            lc = driver.run_sharded_lightcone(inputs, mesh=mesh)
     finally:
         driver.run_sharded_coeval = scroll
-    report = _rank_report(mesh, walls, wall, deposit.cic_deposit_swept.launches)
+    report = _rank_launches(mesh)
     # every rank gathers its slabs of the last Ts step, in one order
     stages = _ts_stages(rec, lambda t: _host(gather_slabs(mesh, t)))
     del rec
     if mesh.rank == 0:
         ref_nodes = []
         ref = None
-        t0 = time.perf_counter()
         with _last_calls(spintemp, "ts_host_tables", "_ts_cell_update") as rec:
             for z, cv, lc_1 in p21.generate_lightcone(inputs, device=mesh.device):
                 if cv is not None:
                     ref_nodes.append({k: _host(v) for k, v in _node_fields(cv).items()})
                 ref = lc_1
-        torch.cuda.synchronize()
-        report["single_wall"] = time.perf_counter() - t0
         ref_stages = _ts_stages(rec, _host)
         del rec
         z_last = float(inputs.node_redshifts[-1])
@@ -3298,10 +2480,8 @@ def _sharded_discrete_job(mesh):
         DISCRETE_TEMPLATE, random_seed=HEADLINE_SEED
     ).evolve_input_structs(**SHARDED_DISCRETE).with_logspaced_redshifts(SHARDED_DISCRETE_Z)
     so = inputs.simulation_options
-    mesh.timed = True
     deposit.cic_deposit_swept.launches = 0
     _ts_shell_zero()
-    torch.cuda.reset_peak_memory_stats(mesh.device)
     sample, painted = {}, {}
     tables, sampler, paint = halos.grid_sampler_tables, halos.sample_halo_grid, \
         halopaint.sharded_halo_grids
@@ -3324,15 +2504,12 @@ def _sharded_discrete_job(mesh):
 
     halos.grid_sampler_tables, halos.sample_halo_grid = tables_kept, sampler_kept
     halopaint.sharded_halo_grids = paint_kept
-    walls = {}
     try:
-        with _timed_parts(walls):
-            (out,), wall = _sync_time(lambda: run_sharded_coeval(inputs, [SHARDED_DISCRETE_Z],
-                                                                 mesh=mesh))
+        (out,) = run_sharded_coeval(inputs, [SHARDED_DISCRETE_Z], mesh=mesh)
     finally:
         halos.grid_sampler_tables, halos.sample_halo_grid = tables, sampler
         halopaint.sharded_halo_grids = paint
-    report = _rank_report(mesh, walls, wall, deposit.cic_deposit_swept.launches)
+    report = _rank_launches(mesh)
     h, masses = sample["h"], sample["masses"]
     n_coll = int(h["collapsed"].sum())
     edges = so.SAMPLER_MIN_MASS * 2.0 ** np.arange(5)
@@ -3347,8 +2524,7 @@ def _sharded_discrete_job(mesh):
     fields = {k: _host(gather_slabs(mesh, v)) for k, v in _node_fields(out).items()}
     if mesh.rank == 0:
         sig = (got_all - expect_all) / np.sqrt(expect_all)
-        single, report["single_wall"] = _sync_time(lambda: halobox.compute_halo_grid(
-            painted["z"], inputs, painted["pt"], device=mesh.device))
+        single = halobox.compute_halo_grid(painted["z"], inputs, painted["pt"], device=mesh.device)
         errs = {k: float(np.abs(v - _host(getattr(single, k))).max()
                          / np.abs(_host(getattr(single, k))).max()) for k, v in grids.items()}
         ok = (abs(n / n_exp - 1) <= 0.01 and bool(np.all(np.abs(sig) <= 5.0))
@@ -3446,17 +2622,9 @@ def _run_sharded(tag, job, world=2, backend="gloo"):
     for r, rep in enumerate(reports):
         if rep is None or rep[0] != "ok":
             raise AssertionError(f"[{tag}] rank {r} failed:\n{rep[1] if rep else 'no report'}")
-    wall = time.perf_counter() - t0
     reports = [rep[1] for rep in reports]
-    for rep in reports:
-        print(f"[{tag}] rank {rep['rank']}: sharded run {rep['wall']:.2f} s, by part "
-              f"{ {k: round(v, 3) for k, v in rep['parts'].items()} } s; in collectives "
-              f"{rep['collective_s']:.2f} s ({rep['collective_calls']} calls, "
-              f"{rep['collective_gib']:.3f} GiB sent, {rep['host_copy_gib']:.3f} GiB copied "
-              f"between card and host); peak memory {rep['peak_gib']:.3f} GiB; deposit kernel "
-              f"launches {rep['launches']}")
-    print(f"[{tag}] {world} ranks ({backend}) from spawn to exit {wall:.1f} s; single-device "
-          f"reference on rank 0 {reports[0].get('single_wall', float('nan')):.2f} s")
+    print(f"[{tag}] {world} ranks ({backend}); deposit and Ts shell kernel launches by rank "
+          f"{[(rep['launches'], rep['ts_shell_launches']) for rep in reports]}")
     numbers, ok = reports[0]["gates"]
     if not ok:
         raise AssertionError(f"[{tag}] the sharded run disagrees with the single-device run: "
@@ -3485,7 +2653,6 @@ def sharded_phase(kernels):
     from py21cmfast_torch.parallel.driver import run_sharded_coeval
     from py21cmfast_torch.parallel.mesh import make_mesh
 
-    t_phase = time.perf_counter()
     # 17a: NCCL, one rank, in this process
     inputs = p21.InputParameters.from_template(MAIN_TEMPLATE, random_seed=SEED)
     multihost.initialize(backend="nccl")
@@ -3493,14 +2660,11 @@ def sharded_phase(kernels):
         mesh = make_mesh(1)
         deposit.cic_deposit_swept.launches = 0
         shells0 = _ts_shell_zero()
-        calls0 = _recorded("counters", "mesh.calls")
-        (out,), wall = _sync_time(lambda: run_sharded_coeval(inputs, [8.0], mesh=mesh))
+        (out,) = run_sharded_coeval(inputs, [8.0], mesh=mesh)
         launches = deposit.cic_deposit_swept.launches
         _ts_shell_read("sharded_simple", shells0, taken=False)
-        print(f"[sharded-simple] run_sharded_coeval({MAIN_TEMPLATE}, [8.0]) over {mesh}: "
-              f"{wall:.3f} s (first call), {_recorded('counters', 'mesh.calls') - calls0} "
-              f"collectives, deposit kernel "
-              f"launches {launches}")
+        print(f"[sharded-simple] run_sharded_coeval({MAIN_TEMPLATE}, [8.0]) over {mesh}: deposit "
+              f"kernel launches {launches}")
         got = {k: _host(v) for k, v in _node_fields(out).items()}
         del out
         (cv,) = p21.run_coeval(inputs, [8.0])
@@ -3534,89 +2698,44 @@ def sharded_phase(kernels):
     sharded_ts = {k: v for k, v in TS_SHELL_BY_PATH.items() if k in paths}
     if any(sharded_ts.values()):
         raise AssertionError(f"a sharded path launched the Ts shell kernels: {sharded_ts}")
-    print(f"[sharded] phase 17 in {time.perf_counter() - t_phase:.1f} s; deposit kernel launches "
-          f"by sharded path {paths}")
+    print(f"[sharded] deposit kernel launches by sharded path {paths}")
 
 
-# phase 18: bench_torch.py's faithful segment (bench.py's full1024), the
-# reference's own DIM = 4 HII_DIM ratio on the headline's lowres grid
-FAITHFUL_DIM = 1024
-# its lightcone's ladder, cut in depth to z=8 (72 of bench.py's 92 nodes)
-FAITHFUL_LADDER = (8.0, 35.0, 1.02)
 # hires x-rows a slab of the plain deposit at 1024^3 (~13 GB of positions,
 # corner indices and fractions; the whole grid's would be ~100 GiB)
 FAITHFUL_PLAIN_ROWS = 128
 
 
 def faithful_phase(kernels):
-    """Phase 18: the 1024^3 ICs (first call, peak memory), the ratio-4
-    kernel against its plain version (in x-slabs) on the perturb's own z=8
-    inputs at 1024^3 -> 256^3 with phase 3's timings and bound, then
-    bench_torch.run_full_lightcone(256, 1024) down FAITHFUL_LADDER with the
-    launch counts zeroed just before and read just after: every node, one
-    deposit launch a node, a fully written finite cone, the peak memory.
-    Returns the kernels line's 1024^3 -> 256^3 row."""
+    """Phase 18: the ratio-4 kernel against its plain version (in x-slabs)
+    on the perturb's own z=8 inputs at 1024^3 -> 256^3 with phase 3's
+    timings and bound, then the faithful lightcone from those ICs down to
+    CUT_Z_END, as phase 9 (`lightcone_phase`).  Returns the kernels line's
+    1024^3 -> 256^3 row."""
     import torch
 
-    import bench_torch
-    from py21cmfast_torch.models import ics as ics_module
-    from py21cmfast_torch.ops import deposit
+    import py21cmfast_torch as p21
 
-    inputs = bench_torch._headline_inputs(256, FAITHFUL_DIM, HEADLINE_SEED, *FAITHFUL_LADDER)
+    inputs = _headline_inputs(FAITHFUL_DIM, CUT_Z_END)
     so = inputs.simulation_options
     if not inputs.matter_options.MINIMIZE_MEMORY:
-        raise AssertionError("the faithful segment runs with MINIMIZE_MEMORY on (bench.py's rule)")
+        raise AssertionError("the faithful lightcone runs with MINIMIZE_MEMORY on (bench.py's rule)")
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    ics, ics_s = _sync_time(lambda: ics_module.compute_initial_conditions(inputs))
-    print(f"[faithful] ICs at {so.hires_shape} -> {so.lowres_shape}: {ics_s:.3f} s (first call, "
-          f"synchronised), peak memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    ics = p21.compute_initial_conditions(inputs)
     d, d_init, ratio = _main_path_deposit_inputs(inputs, ics, 8.0)
     row = _time_deposit(ics.hires_density, d, d_init, ratio,
                         f"faithful lightcone z=8 hires {so.hires_shape}", reps=10,
                         plain_rows=FAITHFUL_PLAIN_ROWS)
-    del ics, d
+    del d
     torch.cuda.empty_cache()
-
-    lcr, written = _tracked_lightconer(inputs)
-    deposit.cic_deposit_swept.launches = 0
-    shells0 = _ts_shell_zero()
-    run = bench_torch.run_full_lightcone(256, FAITHFUL_DIM, HEADLINE_SEED, ladder=FAITHFUL_LADDER,
-                                         lightconer=lcr)
-    launches = deposit.cic_deposit_swept.launches
-    _ts_shell_read("faithful_lightcone", shells0, taken=True)
-    lc, n = run.pop("lightcone"), len(inputs.node_redshifts)
-    if run["n_nodes"] != n or launches != n:
-        raise AssertionError(f"faithful lightcone: {run['n_nodes']} nodes of {n}, {launches} "
-                             "deposit launches")
-    miss = _check_written(written, lcr, inputs, "faithful lightcone")
-    shape = (so.HII_DIM, so.HII_DIM, lcr.n_slices)
-    for q, t in lc.lightcones.items():
-        if tuple(t.shape) != shape or not t.is_cuda or not bool(torch.isfinite(t).all()):
-            raise AssertionError(f"faithful lightcone {q}: {tuple(t.shape)} on {t.device}, or "
-                                 "not finite")
-    gxh = lc.global_quantities["neutral_fraction"]
-    if not gxh[-1] < gxh[0]:
-        raise AssertionError(f"the global xH does not fall: {gxh[0]} -> {gxh[-1]}")
-    print(f"[faithful] HII_DIM={so.HII_DIM} DIM={so.DIM} BOX_LEN={so.BOX_LEN} MINIMIZE_MEMORY, "
-          f"seed {HEADLINE_SEED}: {n} nodes in {run['total_s']:.2f} s with the ICs "
-          f"({run['t_ics_s']:.3f} s) and the finalization ({run['finalize_s']:.3f} s); median "
-          f"{run['node_median_s']:.4f} s a node (min {run['node_min_s']:.4f}, p90 "
-          f"{run['node_p90_s']:.4f}, max {run['node_max_s']:.4f}); {launches} deposit launches; "
-          f"peak memory {run['peak_gib']:.3f} GiB; cone {shape} of {sorted(lc.lightcones)}, "
-          f"{miss} boundary slice(s) unwritten, finite; global xH {gxh[0]:.6f} -> {gxh[-1]:.6f}")
-    del lc
-    torch.cuda.empty_cache()
-    for k in kernels:
-        k["launches_by_path"]["faithful_lightcone"] = launches
-        k["launches"] = sum(k["launches_by_path"].values())
+    lightcone_phase(kernels, inputs, ics, "faithful", "faithful_lightcone", ts_kernels=True)
     return {
         "name": "cic_deposit_swept",
         "shape": "1024^3->256^3",
         "route": "cuda",
         "source": "py21cmfast_torch/csrc/cic_deposit.cu",
         "replaces": "py21cmfast_tpu/ops/pallas_deposit.py:101",
-        "launches": launches,
+        "launches": kernels[0]["launches_by_path"]["faithful_lightcone"],
         **row,
         "library_ms": None,  # no single PyTorch call computes a CIC deposit
     }
@@ -3760,11 +2879,6 @@ def main():
         sys.exit("chip_smoke: no CUDA device is available; this check runs only on an NVIDIA GPU")
     import py21cmfast_torch  # noqa: F401  (fails outside a checkout of the repository)
 
-    t0 = time.perf_counter()
-
-    def done(phase):
-        print(f"[runner] {phase} done at {time.perf_counter() - t0:.1f} s", flush=True)
-
     card_info()
     check_host_memory()
     cpu_global = start_global_on_cpu()
@@ -3772,7 +2886,6 @@ def main():
         build_kernels()
         entry, headline = kernel_phase()
         kernels = [entry]
-        done("phases 1-3")
         dens_swept = small_coeval_phase()
         perturb_paths_phase(dens_swept)
         evolving_small_phase()
@@ -3781,47 +2894,32 @@ def main():
         fixed_halos_small_phase()
         discrete_small_phase()
         slice_small_phase()
-        done("phase 4")
         main_path_phase(kernels)
-        stage_phase()
-        scroll_stage_phase(*scroll_phase(kernels))
-        done("phases 5-8")
+        scroll_phase(kernels)
         base = headline_phase(kernels, headline)
-        done("phase 9")
         photoncons_headline_phase(kernels, headline, base)
-        done("phase 13")
         del headline
         torch.cuda.empty_cache()
         cli_phase(kernels, base)
-        done("phase 16")
         del base
         torch.cuda.empty_cache()
         minihalo_headline_phase(kernels)
-        done("phase 10")
         torch.cuda.empty_cache()
         fixed_halos_headline_phase(kernels)
-        done("phase 11")
         torch.cuda.empty_cache()
         discrete_headline_phase(kernels)
-        done("phase 12")
         torch.cuda.empty_cache()
         samplers_headline_phase(kernels)
-        done("phase 14")
         global_phase(cpu_global)
-        done("phase 15")
         torch.cuda.empty_cache()
         sharded_phase(kernels)
-        done("phase 17")
         torch.cuda.empty_cache()
         kernels.append(faithful_phase(kernels))
-        done("phase 18")
         kernels.append(ts_shell_phase())
-        done("phase 19")
     finally:
         if cpu_global[0].is_alive():
             cpu_global[0].terminate()
         cpu_global[0].join()
-    print(f"[total] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -14,6 +14,9 @@ Plus the port's guards: no JAX imports (py21cmfast_torch.parallel
 included), `torch.distributed` imported only by py21cmfast_torch.parallel,
 which `import py21cmfast_torch` does not load, no silent CPU fallback, and
 the options of earlier slices running on the CPU, a device mesh among them.
+And the parts of chip_smoke.py, the card check, that run without a card:
+its headline inputs against bench.py's, its gates, and its exit without a
+card.
 """
 
 import _torch_threads  # noqa: F401
@@ -22,12 +25,15 @@ import subprocess
 import sys
 from pathlib import Path
 
+import attrs
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 from test_torch_ics import jax_inputs, numpy_grf, port_inputs
 
+import bench
+import chip_smoke
 import py21cmfast_torch as t21
 from py21cmfast_torch import interop
 from py21cmfast_torch.models import brightness as tbright
@@ -278,8 +284,7 @@ def _imported_modules(path):
 
 
 def test_port_and_chip_smoke_import_no_jax():
-    files = sorted((REPO / "py21cmfast_torch").rglob("*.py")) + [
-        REPO / "chip_smoke.py", REPO / "bench_torch.py"]
+    files = sorted((REPO / "py21cmfast_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 20
     bad = [
         (str(f.relative_to(REPO)), m) for f in files for m in _imported_modules(f)
@@ -288,10 +293,85 @@ def test_port_and_chip_smoke_import_no_jax():
     assert not bad, bad
 
 
+INPUT_GROUPS = ("cosmo_params", "matter_options", "simulation_options", "astro_options",
+                "astro_params")
+
+
+def _plain(inputs):
+    return {**{g: attrs.asdict(getattr(inputs, g)) for g in INPUT_GROUPS},
+            "random_seed": inputs.random_seed, "node_redshifts": list(inputs.node_redshifts)}
+
+
+@pytest.mark.parametrize("dim", [768, 1024], ids=["256-768", "256-1024"])
+def test_headline_inputs_equal_bench_py(dim):
+    """chip_smoke.py's one headline builder is bench.py's, field for field,
+    but for MINIMIZE_MEMORY, which chip_smoke.py turns on at DIM 768 too."""
+    got = _plain(chip_smoke._headline_inputs(dim))
+    ref = _plain(bench._headline_inputs(256, dim, 3, 5.0, 35.0, 1.02))
+    assert got["matter_options"]["MINIMIZE_MEMORY"] is True
+    assert ref["matter_options"]["MINIMIZE_MEMORY"] is (dim == 1024)
+    ref["matter_options"]["MINIMIZE_MEMORY"] = True
+    assert got == ref
+    assert len(got["node_redshifts"]) == 92
+
+
+@pytest.mark.parametrize("case", ["ts-shell-launches", "ts-shell-path", "coeval-fields",
+                                  "host-memory"])
+def test_chip_smoke_gates_fail_a_wrong_result(monkeypatch, case):
+    """chip_smoke.py's gates that read no card pass a right result and raise
+    on a wrong one: the Ts shell kernels' launches against the recorder's
+    kernel shells, and against the path a run should take; a sharded node's
+    fields against the single-device run's; the host's free memory."""
+    from py21cmfast_torch.ops import ts_shell
+
+    monkeypatch.setattr(chip_smoke, "TS_SHELL_BY_PATH", {})
+    for kernel in (ts_shell.ts_shell_reduce, ts_shell.ts_shell_accumulate):
+        monkeypatch.setattr(kernel, "launches", kernel.launches)
+    if case == "ts-shell-launches":
+        assert chip_smoke._ts_shell_read("right", chip_smoke._ts_shell_zero()) == 0
+        shells0 = chip_smoke._ts_shell_zero()
+        ts_shell.ts_shell_reduce.launches = ts_shell.ts_shell_accumulate.launches = 1
+        with pytest.raises(AssertionError, match="kernel shells"):
+            chip_smoke._ts_shell_read("wrong", shells0)
+    elif case == "ts-shell-path":
+        assert chip_smoke._ts_shell_read("right", chip_smoke._ts_shell_zero(), taken=False) == 0
+        with pytest.raises(AssertionError, match="expected some"):
+            chip_smoke._ts_shell_read("wrong", chip_smoke._ts_shell_zero(), taken=True)
+    elif case == "coeval-fields":
+        rng = np.random.default_rng(0)
+        ref = dict(density=rng.normal(0, 1, (8, 8, 8)), xH=rng.uniform(0, 1, (8, 8, 8)),
+                   Tb=rng.normal(10, 5, (8, 8, 8)))
+        assert chip_smoke._coeval_gates("right", 8.0, dict(ref), ref)[1]
+        assert not chip_smoke._coeval_gates("wrong", 8.0, dict(ref, density=ref["density"] + 1e-3),
+                                            ref)[1]
+    else:
+        monkeypatch.setattr(chip_smoke, "DISCRETE_HOST_GIB", 0.0)
+        chip_smoke.check_host_memory()
+        monkeypatch.setattr(chip_smoke, "DISCRETE_HOST_GIB", float("inf"))
+        with pytest.raises(SystemExit, match="host memory free"):
+            chip_smoke.check_host_memory()
+
+
 @pytest.fixture
 def no_cuda():
     if torch.cuda.is_available():
         pytest.skip("checks the behaviour without a CUDA device")
+
+
+@pytest.mark.parametrize("how", ["main", "script"])
+def test_chip_smoke_without_a_card_exits_nonzero(no_cuda, how):
+    """Without a card, chip_smoke.py exits non-zero, names the missing card
+    and prints no result line."""
+    if how == "main":
+        with pytest.raises(SystemExit) as exit_:
+            chip_smoke.main()
+        assert exit_.value.code not in (0, None)
+        assert "no CUDA device" in str(exit_.value.code)
+    else:
+        proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=REPO, capture_output=True,
+                              text=True, timeout=300)
+        assert proc.returncode != 0 and '"ok"' not in proc.stdout
+        assert "no CUDA device" in proc.stderr
 
 
 @pytest.mark.parametrize(
