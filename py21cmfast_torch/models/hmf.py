@@ -350,25 +350,6 @@ def unconditional_mf(table, cosmo, hmf: int, z, growthf, ln_m):
 # Conditional mass functions (per unit condition Lagrangian mass fraction)
 
 
-def cond_mf_EPS(table, growthf, ln_m, delta_cond, sigma_cond):
-    """EPS conditional MF, constant barrier (hmf.c:317-330).
-
-    delta_cond/sigma_cond broadcast against ln_m."""
-    sigma1 = table.sigma_of_lnm(ln_m)
-    dsigmasqdm = table.dsigmasq_of_lnm(ln_m)
-    sigdiff = sigma1**2 - sigma_cond**2
-    sigdiff_inv = np.where(sigdiff > 0, 1.0 / np.where(sigdiff > 0, sigdiff, 1.0), 1e6)
-    del_ = (physconst.delta_c_sph - delta_cond) / growthf
-    out = (
-        -del_
-        * dsigmasqdm
-        * sigdiff_inv**1.5
-        * np.exp(-del_ * del_ * 0.5 * sigdiff_inv)
-        / np.sqrt(2.0 * np.pi)
-    )
-    return np.where(sigma1 < sigma_cond, 0.0, out)
-
-
 def _st_taylor_factor(sig, sig_cond, growthf):
     """Taylor-expanded moving-barrier factor for the ST CMF (hmf.c:234-267)."""
     a, alpha, beta = JENKINS_a, JENKINS_c, JENKINS_b
@@ -388,44 +369,57 @@ def _st_taylor_factor(sig, sig_cond, growthf):
     return pre1 * (1 + pre2 * result), barrier
 
 
-def cond_mf_ST(table, growthf, ln_m, delta_cond, sigma_cond):
-    """Sheth-Tormen conditional MF via barrier Taylor expansion (hmf.c:270-285)."""
+def _cmf_mass_terms(table, hmf, growthf, ln_m, sigma_cond):
+    """What a conditional MF takes from the mass alone: sigma(M),
+    dsigma^2/dM, 1/(sigma^2 - sigma_cond^2) (1e6 where not positive) and,
+    for ST, the Taylor factor and the barrier (None otherwise).  Taken on the
+    nodes' shape, they broadcast against many conditions' deltas."""
     sigma1 = table.sigma_of_lnm(ln_m)
     dsigmasqdm = table.dsigmasq_of_lnm(ln_m)
-    delta_0 = delta_cond / growthf
-    factor, barrier = _st_taylor_factor(sigma1, sigma_cond, growthf)
-    factor = factor - delta_0
     sigdiff = sigma1**2 - sigma_cond**2
     sigdiff_inv = np.where(sigdiff > 0, 1.0 / np.where(sigdiff > 0, sigdiff, 1.0), 1e6)
-    out = (
-        -dsigmasqdm
-        * factor
-        * sigdiff_inv**1.5
-        * np.exp(-((barrier - delta_0) ** 2) * 0.5 * sigdiff_inv)
-        / np.sqrt(2.0 * np.pi)
-    )
+    st = _st_taylor_factor(sigma1, sigma_cond, growthf) if hmf == HMF_ST else (None, None)
+    return (sigma1, dsigmasqdm, sigdiff_inv, *st)
+
+
+def _cmf_of_delta(hmf, terms, growthf, delta_cond, sigma_cond):
+    """The conditional MF from `_cmf_mass_terms` at the condition's delta:
+    ST via the barrier's Taylor expansion (hmf.c:270-285), Delos 2023
+    (hmf.c:209-229), else EPS with its constant barrier (hmf.c:317-330)."""
+    sigma1, dsigmasqdm, sigdiff_inv, factor, barrier = terms
+    if hmf == HMF_ST:
+        delta_0 = delta_cond / growthf
+        out = (
+            -dsigmasqdm
+            * (factor - delta_0)
+            * sigdiff_inv**1.5
+            * np.exp(-((barrier - delta_0) ** 2) * 0.5 * sigdiff_inv)
+            / np.sqrt(2.0 * np.pi)
+        )
+    elif hmf == HMF_DELOS:
+        nu = (physconst.delta_c_delos - delta_cond) * np.sqrt(sigdiff_inv) / growthf
+        dfdnu = 0.519 * nu**0.582 * np.exp(-0.469 * nu * nu)
+        out = dfdnu * np.abs(dsigmasqdm * 0.5) * sigdiff_inv
+    else:
+        del_ = (physconst.delta_c_sph - delta_cond) / growthf
+        out = (
+            -del_
+            * dsigmasqdm
+            * sigdiff_inv**1.5
+            * np.exp(-del_ * del_ * 0.5 * sigdiff_inv)
+            / np.sqrt(2.0 * np.pi)
+        )
     return np.where(sigma1 < sigma_cond, 0.0, out)
 
 
-def cond_mf_Delos(table, growthf, ln_m, delta_cond, sigma_cond):
-    """Delos 2023 conditional MF (hmf.c:209-229)."""
-    sigma = table.sigma_of_lnm(ln_m)
-    dsigmadm = table.dsigmasq_of_lnm(ln_m) * 0.5
-    sigdiff = sigma**2 - sigma_cond**2
-    sigdiff_inv = np.where(sigdiff > 0, 1.0 / np.where(sigdiff > 0, sigdiff, 1.0), 1e6)
-    nu = (physconst.delta_c_delos - delta_cond) * np.sqrt(sigdiff_inv) / growthf
-    dfdnu = 0.519 * nu**0.582 * np.exp(-0.469 * nu * nu)
-    out = dfdnu * np.abs(dsigmadm) * sigdiff_inv
-    return np.where(sigma < sigma_cond, 0.0, out)
-
-
 def conditional_mf(table, hmf: int, growthf, ln_m, delta_cond, sigma_cond):
-    if hmf == HMF_ST:
-        return cond_mf_ST(table, growthf, ln_m, delta_cond, sigma_cond)
-    if hmf == HMF_DELOS:
-        return cond_mf_Delos(table, growthf, ln_m, delta_cond, sigma_cond)
-    # EPS fallback for all others (normalization applied per-condition upstream)
-    return cond_mf_EPS(table, growthf, ln_m, delta_cond, sigma_cond)
+    """The conditional MF of `hmf` (EPS for all but ST and Delos; the
+    normalization is applied per condition upstream); delta_cond and
+    sigma_cond broadcast against ln_m."""
+    if hmf not in (HMF_ST, HMF_DELOS):
+        hmf = HMF_PS
+    terms = _cmf_mass_terms(table, hmf, growthf, ln_m, sigma_cond)
+    return _cmf_of_delta(hmf, terms, growthf, delta_cond, sigma_cond)
 
 
 # ---------------------------------------------------------------------------
@@ -582,6 +576,53 @@ def nion_conditional(
     )
     out = np.where(np.asarray(delta) > MAX_DELTAC_FRAC * delta_crit, cap_value, out)
     return np.where(ln_lo >= ln_hi, 0.0, out)
+
+
+_LADDER_ROWS = 2  # conditions of one (rows, N, K) pass: under a MB, held in cache
+
+
+def nion_conditional_ladder(
+    table, hmf, growthf, ln_lo, ln_m_cond, sigma_cond, delta, mturn_acg, scs, ln_hi=None,
+):
+    """`nion_conditional` (GAUSS-LEGENDRE, atomic-cooling halos) over a ladder
+    of conditions at once.  Row i of the (n_r, N) result is
+    `nion_conditional(table, hmf, growthf[i], ln_lo[i], ln_m_cond[i],
+    sigma_cond[i], delta[i], mturn_acg[i], scs[i], ln_hi=ln_hi[i])`, to the
+    last bit, where `delta` is (n_r, N), `scs` one ScalingConstants a row and
+    the rest (n_r,).
+
+    The terms that depend on the mass alone (the quadrature nodes,
+    `_cmf_mass_terms` and the scaling-relation weight) are taken once a row
+    and node, on (n_r, 1, K); the conditional MF's delta-dependent part and
+    the sum over the K nodes then run on (rows, N, K), a few rows at a time,
+    with the arithmetic of `integrate_cmf` in its order."""
+    if hmf not in (HMF_PS, HMF_ST, HMF_DELOS):
+        hmf = HMF_PS
+    growthf, ln_lo, ln_m_cond, sigma_cond = (
+        np.asarray(v, dtype=np.float64) for v in (growthf, ln_lo, ln_m_cond, sigma_cond))
+    ln_hi = ln_m_cond if ln_hi is None else np.asarray(ln_hi, dtype=np.float64)
+    delta = np.asarray(delta, dtype=np.float64)
+    g, s_cond = growthf[:, None, None], sigma_cond[:, None, None]
+
+    x, w = (v[:, None, :] for v in _gl_nodes(ln_lo, ln_hi))
+    weight = np.stack([nion_weight(x[i], sc, mturn_acg[i]) for i, sc in enumerate(scs)])
+    terms = _cmf_mass_terms(table, hmf, g, x, s_cond)
+    out = np.empty(delta.shape)
+    for r0 in range(0, len(delta), _LADDER_ROWS):
+        rows = slice(r0, r0 + _LADDER_ROWS)
+        f = _cmf_of_delta(hmf, [None if t is None else t[rows] for t in terms], g[rows],
+                          delta[rows, :, None], s_cond[rows])
+        f = f * weight[rows]
+        out[rows] = np.sum(f * w[rows], axis=-1)
+
+    delta_crit = get_delta_crit(hmf, sigma_cond, growthf)
+    cap_value = np.array([
+        nion_weight(np.asarray([ln_m_cond[i]]), sc, mturn_acg[i])[0] / np.exp(ln_m_cond[i])
+        if ln_m_cond[i] * (1.0 - FRACT_FLOAT_ERR) <= ln_hi[i] else 0.0
+        for i, sc in enumerate(scs)
+    ])
+    out = np.where(delta > MAX_DELTAC_FRAC * delta_crit[:, None], cap_value[:, None], out)
+    return np.where((ln_lo >= ln_hi)[:, None], 0.0, out)
 
 
 # ---------------------------------------------------------------------------

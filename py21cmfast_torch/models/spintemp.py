@@ -33,6 +33,7 @@ Known approximations vs the reference (as in the JAX package):
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -231,50 +232,65 @@ def spectral_prefactors(zp, ladder: ShellLadder, inputs: InputParameters):
             "inj_mini": inj_mini, "lw": lw, "lw_mini": lw_mini}
 
 
-def _build_sfrd_tables(inputs, ladder, sigma_table, sc_zp):
-    """Per-shell conditional SFRD(delta) tables (E-INTEGRAL path).
+class SfrdTables(NamedTuple):
+    """One Ts step's conditional SFRD(delta) tables, a row a shell, with
+    their Chebyshev fit (`_fit_log_cheby`) and the number of shells that
+    `hmf.nion_conditional_ladder` built (0 under GAMMA-APPROX)."""
 
-    Table axis is delta *at zpp* in [-1+eps, 0.99*delta_crit]."""
+    d_lo: np.ndarray
+    d_hi: np.ndarray
+    tables: np.ndarray
+    caps: np.ndarray
+    cheby: np.ndarray
+    edge: np.ndarray
+    use_cheby: bool
+    batched_shells: int
+
+
+def _build_sfrd_tables(inputs, ladder, sigma_table) -> SfrdTables:
+    """Per-shell conditional SFRD(delta) tables (E-INTEGRAL path) and their fit.
+
+    Table axis is delta *at zpp* in [-1+eps, 0.99*delta_crit].  The
+    quadrature takes the whole ladder in one `hmf.nion_conditional_ladder`
+    call; GAMMA-APPROX, a closed form, takes the shells one at a time."""
     n_r = len(ladder.R)
     hmf_int = hmf.HMF_NAMES[inputs.matter_options.HMF]
     eff_hmf = hmf_int if hmf_int in (hmf.HMF_PS, hmf.HMF_ST, hmf.HMF_DELOS) else hmf.HMF_PS
+    method = inputs.astro_options.INTEGRATION_METHOD_ATOMIC
+    scs = [hmf.set_scaling_constants(zpp, inputs).without_esc() for zpp in ladder.zpp]
+    mturn = np.array([sc.mturn_a_nofb for sc in scs])
+    ln_lo, ln_cond = np.log(ladder.m_min), np.log(ladder.m_max)
+    sigma_cond = sigma_table.sigma_of_lnm(ln_cond)
     d_lo = np.full(n_r, -1.0 + 1e-6)
-    d_hi = np.empty(n_r)
-    tables = np.empty((n_r, N_DELTA_SFRD))
-    caps = np.empty(n_r)
-    sigma_cond = sigma_table.sigma_of_lnm(np.log(ladder.m_max))
-    for i in range(n_r):
-        growth = ladder.growth[i]
-        sc = hmf.set_scaling_constants(ladder.zpp[i], inputs).without_esc()
-        dcrit = float(hmf.get_delta_crit(eff_hmf, sigma_cond[i], growth))
-        d_hi[i] = dcrit * hmf.MAX_DELTAC_FRAC
-        deltas = np.linspace(d_lo[i], d_hi[i], N_DELTA_SFRD)
-        tables[i] = hmf.nion_conditional(
-            sigma_table,
-            hmf_int,
-            growth,
-            float(np.log(ladder.m_min[i])),
-            float(np.log(ladder.m_max[i])),
-            sigma_cond[i],
-            deltas,
-            sc.mturn_a_nofb,
-            sc,
-            method=inputs.astro_options.INTEGRATION_METHOD_ATOMIC,
-        )
-        caps[i] = (
-            hmf.nion_weight(np.array([np.log(ladder.m_max[i])]), sc, sc.mturn_a_nofb)[0]
-            / ladder.m_max[i]
-        )
-    return d_lo, d_hi, tables, caps
+    d_hi = hmf.get_delta_crit(eff_hmf, sigma_cond, ladder.growth) * hmf.MAX_DELTAC_FRAC
+    deltas = np.linspace(d_lo, d_hi, N_DELTA_SFRD, axis=1)
+    if method == "GAMMA-APPROX":
+        tables = np.stack([
+            hmf.nion_conditional(
+                sigma_table, hmf_int, ladder.growth[i], ln_lo[i], ln_cond[i], sigma_cond[i],
+                deltas[i], mturn[i], scs[i], method=method,
+            )
+            for i in range(n_r)
+        ])
+        batched = 0
+    else:
+        tables = hmf.nion_conditional_ladder(
+            sigma_table, hmf_int, ladder.growth, ln_lo, ln_cond, sigma_cond, deltas, mturn, scs)
+        batched = n_r
+    caps = np.array([
+        hmf.nion_weight(ln_cond[i:i + 1], sc, sc.mturn_a_nofb)[0] for i, sc in enumerate(scs)
+    ]) / ladder.m_max
+    return SfrdTables(d_lo, d_hi, tables, caps, *_fit_log_cheby(tables, caps), batched)
 
 
-
-# Next-node SFRD-table prefetch: the per-shell tables are pure-numpy host work
-# that would otherwise serialize with the device work.  A single worker thread
-# builds the NEXT node's tables while the main thread runs this node (numpy
-# releases the GIL, and CUDA launches are asynchronous).  The recorder books
-# the worker's seconds as `ts.sfrd_build`, in the run and node that asked for
-# them, and a node's wait for them as `ts.sfrd_wait`.
+# Next-node SFRD-table prefetch: the per-shell tables and their fit are
+# pure-numpy host work that would otherwise serialize with the device work.  A
+# single worker thread builds the NEXT node's tables while the main thread
+# runs this node (numpy releases the GIL, and CUDA launches are asynchronous).
+# The recorder books the worker's seconds as `ts.sfrd_build`, in the run and
+# node that asked for them, a node's wait for them as `ts.sfrd_wait`, and the
+# shells that the batched quadrature built as the counter
+# `ts.sfrd_batched_shells`, on the thread that takes them.
 _SFRD_PREFETCH: dict = {"pool": None, "futs": {}}
 
 
@@ -299,24 +315,25 @@ def prefetch_sfrd_tables(zp: float, inputs: InputParameters) -> None:
 
     def work():
         with tracing.span("ts.sfrd_build", at=book):
-            ladder = setup_z_edges(float(zp), inputs)
             return _build_sfrd_tables(
-                inputs, ladder, _get_sigma_table(inputs),
-                hmf.set_scaling_constants(float(zp), inputs),
-            )
+                inputs, setup_z_edges(float(zp), inputs), _get_sigma_table(inputs))
 
     futs[key] = _SFRD_PREFETCH["pool"].submit(work)
 
 
-def _sfrd_tables_for(zp, inputs, ladder, sigma_table, sc_zp):
-    """The prefetched tables when available, a synchronous build otherwise."""
+def _sfrd_tables_for(zp, inputs, ladder, sigma_table) -> SfrdTables:
+    """The prefetched tables when available, a synchronous build otherwise;
+    `ts.sfrd_batched_shells` is booked here, on the thread that takes them."""
     fut = _SFRD_PREFETCH["futs"].pop(
         (round(float(zp), 9), inputs.full_hash), None
     )
     if fut is not None:
         with tracing.span("ts.sfrd_wait"):
-            return fut.result()
-    return _build_sfrd_tables(inputs, ladder, sigma_table, sc_zp)
+            sfrd = fut.result()
+    else:
+        sfrd = _build_sfrd_tables(inputs, ladder, sigma_table)
+    tracing.count("ts.sfrd_batched_shells", sfrd.batched_shells)
+    return sfrd
 
 
 # ---------------------------------------------------------------------------
@@ -1022,10 +1039,9 @@ def ts_host_tables(redshift, inputs, pf_redshift, prev_redshift, x_e_ave, ave_mc
             sfrd_caps[i] = sfrd_tables[i][-1]
         z_edge_factor = np.abs(ladder.dzpp)
     else:
-        d_lo, d_hi, sfrd_tables, sfrd_caps = _sfrd_tables_for(
-            redshift, inputs, ladder, sigma_table, sc_zp
-        )
-        sfrd_cheby, sfrd_edge, use_cheby = _fit_log_cheby(sfrd_tables, sfrd_caps)
+        sfrd = _sfrd_tables_for(redshift, inputs, ladder, sigma_table)
+        d_lo, d_hi, sfrd_tables, sfrd_caps = sfrd.d_lo, sfrd.d_hi, sfrd.tables, sfrd.caps
+        sfrd_cheby, sfrd_edge, use_cheby = sfrd.cheby, sfrd.edge, sfrd.use_cheby
         # z-edge factors (ts_main:1566-1572, E-INTEGRAL branch)
         z_edge_factor = np.abs(ladder.dzpp * ladder.dtdz) * np.asarray(
             cosmo.hubble(ladder.zpp)

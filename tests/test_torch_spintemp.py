@@ -167,15 +167,73 @@ def test_shell_ladder_and_spectral_prefactors_match_jax(chain):
     assert np.any(ref_s["starlya"] > 0)
 
 
-def test_sfrd_tables_match_jax(chain):
-    """_build_sfrd_tables: relative 1e-12 (copies)."""
-    z, jinp, tinp = chain["nodes"][-1]["z"], chain["jinp"], chain["tinp"]
+SFRD_CASES = [(h, m) for h in ("ST", "PS", "DELOS") for m in ("GAUSS-LEGENDRE", "GAMMA-APPROX")]
+
+
+@pytest.mark.parametrize("hmf_name,method", SFRD_CASES)
+def test_sfrd_tables_match_jax(chain, hmf_name, method):
+    """_build_sfrd_tables, one batched quadrature over the shell ladder
+    (GAMMA-APPROX: the per-shell loop), against the JAX package's per-shell
+    loop: d_lo, d_hi, tables and caps relative 1e-12, the Chebyshev fit
+    against `_fit_log_cheby` of the JAX tables, and the shells the batch
+    built."""
+    z = chain["nodes"][-1]["z"]
+    jinp = chain["jinp"].evolve_input_structs(HMF=hmf_name, INTEGRATION_METHOD_ATOMIC=method)
+    tinp = port_inputs(jinp)
     ref = jsp._build_sfrd_tables(
         jinp, jsp.setup_z_edges(z, jinp), jsp._get_sigma_table(jinp), None)
-    got = tsp._build_sfrd_tables(
-        tinp, tsp.setup_z_edges(z, tinp), tsp._get_sigma_table(tinp), None)
-    for g, r in zip(got, ref):
-        np.testing.assert_allclose(g, r, rtol=1e-12)
+    got = tsp._build_sfrd_tables(tinp, tsp.setup_z_edges(z, tinp), tsp._get_sigma_table(tinp))
+    for name, r in zip(("d_lo", "d_hi", "tables", "caps"), ref):
+        np.testing.assert_allclose(getattr(got, name), r, rtol=1e-12, err_msg=name)
+    cheby, edge, ok = jion._fit_log_cheby(np.asarray(ref[2]), np.asarray(ref[3]))
+    np.testing.assert_allclose(got.cheby, cheby, rtol=1e-12, atol=1e-12 * np.abs(cheby).max())
+    np.testing.assert_allclose(got.edge, edge, rtol=1e-12)
+    assert got.use_cheby == ok
+    n_r = tinp.astro_params.N_STEP_TS
+    assert got.tables.shape == (n_r, tsp.N_DELTA_SFRD)
+    assert got.batched_shells == (0 if method == "GAMMA-APPROX" else n_r)
+
+
+@pytest.mark.parametrize("hmf_name", ["PS", "ST", "DELOS", "WATSON"])
+def test_nion_conditional_ladder_matches_the_per_row_integral(hmf_name):
+    """hmf.nion_conditional_ladder against a loop of hmf.nion_conditional,
+    to the last bit, over rows that reach the cap (one halo at the
+    condition mass), that integrate below the condition mass (the cap is
+    then 0), that hold nodes with sigma < sigma_cond, and with
+    ln_lo >= ln_hi; WATSON takes the EPS fallback."""
+    from py21cmfast_torch.inputs import InputParameters
+    from py21cmfast_torch.models import hmf
+
+    inputs = InputParameters(random_seed=1).evolve_input_structs(SOURCE_MODEL="E-INTEGRAL")
+    table = tsp._get_sigma_table(inputs)
+    h = hmf.HMF_NAMES[hmf_name]
+    zs = np.array([30.0, 20.0, 15.0, 12.0, 9.0])
+    growth = np.array([float(inputs.cosmology.dicke(z)) for z in zs])
+    scs = [hmf.set_scaling_constants(z, inputs) for z in zs[:1]] + [
+        hmf.set_scaling_constants(z, inputs).without_esc() for z in zs[1:]]
+    mturn = np.array([sc.mturn_a_nofb for sc in scs])
+    ln_lo = np.log([1e8, 5e7, 2e8, 1e8, 1e13])
+    ln_cond = np.log([1e11, 3e11, 1e12, 1e12, 1e12])
+    ln_hi = ln_cond - np.array([0.0, 0.0, 1.0, 0.0, 0.0])
+    # row 3: a condition sigma of 1e11 Msun, above sigma at the nodes over it
+    sigma_cond = table.sigma_of_lnm(ln_cond - np.array([0.0, 0.0, 0.0, np.log(10.0), 0.0]))
+    eff = h if h in (hmf.HMF_PS, hmf.HMF_ST, hmf.HMF_DELOS) else hmf.HMF_PS
+    d_crit = hmf.get_delta_crit(eff, sigma_cond, growth)
+    deltas = np.linspace(-1.0 + 1e-6, 1.2 * d_crit, 60, axis=1)
+    got = hmf.nion_conditional_ladder(
+        table, h, growth, ln_lo, ln_cond, sigma_cond, deltas, mturn, scs, ln_hi=ln_hi)
+    for i, sc in enumerate(scs):
+        ref = hmf.nion_conditional(table, h, growth[i], ln_lo[i], ln_cond[i], sigma_cond[i],
+                                   deltas[i], mturn[i], sc, ln_hi=ln_hi[i])
+        np.testing.assert_array_equal(got[i], ref, err_msg=f"row {i}")
+    capped = deltas > hmf.MAX_DELTAC_FRAC * d_crit[:, None]
+    assert capped[:4].any(axis=1).all() and (~capped[:4]).any(axis=1).all()
+    cap = hmf.nion_weight(ln_cond[:1], scs[0], mturn[0])[0] / np.exp(ln_cond[0])
+    np.testing.assert_allclose(got[0][capped[0]], cap, rtol=1e-12)
+    assert (got[2][capped[2]] == 0).all() and (got[2][~capped[2]] > 0).all()
+    x, _ = hmf._gl_nodes(ln_lo[3], ln_hi[3])
+    assert (table.sigma_of_lnm(x) < sigma_cond[3]).any()
+    assert (got[4] == 0).all()
 
 
 def test_heating_tables_match_jax(chain):
@@ -491,17 +549,33 @@ def test_trilerp_matches_jax():
 
 def test_prefetch_builds_the_tables_a_node_then_takes(chain):
     """prefetch_sfrd_tables builds on its worker what _sfrd_tables_for then
-    hands to the node, identical to a synchronous build; the recorder books
-    the worker's seconds as `ts.sfrd_build`."""
-    tinp, z = chain["tinp"], 13.375
-    ladder = tsp.setup_z_edges(z, tinp)
-    direct = tsp._build_sfrd_tables(tinp, ladder, tsp._get_sigma_table(tinp), None)
-    tsp.prefetch_sfrd_tables(z, tinp)
-    assert len(tsp._SFRD_PREFETCH["futs"]) == 1
-    taken = tsp._sfrd_tables_for(z, tinp, ladder, tsp._get_sigma_table(tinp), None)
-    build_s = tracing.totals()["spans"]["ts.sfrd_build"][1]
-    assert not tsp._SFRD_PREFETCH["futs"] and build_s > 0
-    for g, r in zip(taken, direct):
-        np.testing.assert_array_equal(g, r)
-    tsp.prefetch_sfrd_tables(z, tinp.evolve_input_structs(SOURCE_MODEL="CONST-ION-EFF"))
+    hands to the node, the fit included, identical to a synchronous build;
+    the recorder books the worker's seconds as `ts.sfrd_build`, and the
+    counter `ts.sfrd_batched_shells` in the book of the thread that takes
+    the tables: the ladder's 40 shells, 0 under GAMMA-APPROX."""
+    z = 13.375
+
+    @tracing.traced_run
+    def take(inputs):
+        ladder = tsp.setup_z_edges(z, inputs)
+        direct = tsp._build_sfrd_tables(inputs, ladder, tsp._get_sigma_table(inputs))
+        tsp.prefetch_sfrd_tables(z, inputs)
+        assert len(tsp._SFRD_PREFETCH["futs"]) == 1
+        tracing.begin_node(0, z)
+        yield direct, tsp._sfrd_tables_for(z, inputs, ladder, tsp._get_sigma_table(inputs))
+
+    for inputs, shells in ((chain["tinp"], 40),
+                           (chain["tinp"].evolve_input_structs(
+                               INTEGRATION_METHOD_ATOMIC="GAMMA-APPROX"), 0)):
+        (direct, taken), = take(inputs)
+        run = tracing.runs(last=1)[0]
+        assert run["nodes"][0]["counters"]["ts.sfrd_batched_shells"] == {None: shells}
+        assert "ts.sfrd_batched_shells" not in run["counters"]
+        assert not tsp._SFRD_PREFETCH["futs"]
+        assert tracing.totals()["spans"]["ts.sfrd_build"][1] > 0
+        assert taken.batched_shells == direct.batched_shells == shells
+        assert taken.use_cheby == direct.use_cheby
+        for g, r in zip(taken, direct):
+            np.testing.assert_array_equal(g, r)
+    tsp.prefetch_sfrd_tables(z, chain["tinp"].evolve_input_structs(SOURCE_MODEL="CONST-ION-EFF"))
     assert not tsp._SFRD_PREFETCH["futs"]
