@@ -26,6 +26,7 @@ torch.set_num_threads(max(1, (torch.get_num_threads() or 6) // 6))
 # latest template) and with the simple template's 15 Mpc
 TINY = {
     "latest-256-768": dict(HII_DIM=34, DIM=136, BOX_LEN=51.0, ZPRIME_STEP_FACTOR=1.2),
+    "latest-256-768-z6": dict(HII_DIM=34, DIM=136, BOX_LEN=51.0, ZPRIME_STEP_FACTOR=1.2),
     "simple-256-768": dict(HII_DIM=16, DIM=48, BOX_LEN=24.0, ZPRIME_STEP_FACTOR=1.2),
 }
 SEED = 2**31 + 4711  # seeds past 32 signed bits must work

@@ -26,6 +26,7 @@ from pathlib import Path
 
 BENCH_DIR = Path(__file__).resolve().parent.parent
 ROOT = BENCH_DIR.parent
+WARMUP_NODES = 3  # the warm-up cone's nodes where the ladder runs above the band
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,12 +118,55 @@ def cone_band(cell: Cell, z_heat_max: float) -> tuple[float, float]:
 def build_inputs(input_parameters, cell: Cell, seed: int, overrides: dict | None = None):
     """The cell's inputs for `seed`, built with the given InputParameters
     class (the program's or the reference's): the configuration's
-    parameters, `overrides` over them, and the traffic's node ladder."""
+    parameters, `overrides` over them, and the node ladder: the band's, or
+    where the physics carries a history (`carries_history`) the whole ladder
+    from the band's low end up to Z_HEAT_MAX, as a user's cone must run it."""
     params = dict(cell.config["params"])
     params.update(overrides or {})
     inputs = input_parameters(random_seed=int(seed)).evolve_input_structs(**params)
-    z_min, z_max = cone_band(cell, inputs.simulation_options.Z_HEAT_MAX)
-    return inputs.with_logspaced_redshifts(z_min, z_max)
+    z_heat_max = inputs.simulation_options.Z_HEAT_MAX
+    z_min, z_max = cone_band(cell, z_heat_max)
+    return inputs.with_logspaced_redshifts(z_min, z_heat_max if carries_history(inputs) else z_max)
+
+
+def carries_history(inputs) -> bool:
+    """Whether a node's fields depend on the nodes above it, so that the
+    scroll starts at Z_HEAT_MAX whatever the band: the spin temperature's
+    X-ray and Lyman-alpha history, or recombinations that accumulate (the
+    program's own test for a chain that evolves, `drivers/coeval.py`)."""
+    astro = inputs.astro_options
+    return bool(astro.USE_TS_FLUCT or astro.uses_recombination)
+
+
+def band_nodes(cell: Cell, inputs) -> tuple[float, ...]:
+    """The node redshifts whose slices the cone holds, descending: those of
+    `inputs` that lie on the band's own ladder, which grows from the same
+    low end by the same factor and so ends a longer ladder node for node.
+    Every node, where the ladder is the band's."""
+    nodes = tuple(float(z) for z in inputs.node_redshifts)
+    band = {float(z) for z in inputs.with_logspaced_redshifts(
+        *cone_band(cell, inputs.simulation_options.Z_HEAT_MAX)).node_redshifts}
+    kept = tuple(z for z in nodes if z in band)
+    if not kept or nodes[len(nodes) - len(kept):] != kept:
+        raise ValueError(f"traffic {cell.traffic_name}: the band's nodes {sorted(band)} do "
+                         f"not end the ladder {nodes}")
+    return kept
+
+
+def warmup_inputs(cell: Cell, inputs):
+    """The inputs of set-up's warm-up cone: `inputs`, or where the ladder
+    runs above the band only its lowest WARMUP_NODES nodes, which run every
+    stage and shape of the window's cones (a cold Ts start, Ts steps with a
+    history, the ionization ladder with its recombinations, the slices, dvdr
+    and the RSDs) without set-up paying a whole chained cone."""
+    nodes = tuple(float(z) for z in inputs.node_redshifts)
+    if len(band_nodes(cell, inputs)) == len(nodes):
+        return inputs
+    warm = inputs.with_logspaced_redshifts(nodes[-1], nodes[-WARMUP_NODES])
+    if tuple(float(z) for z in warm.node_redshifts) != nodes[-WARMUP_NODES:]:
+        raise ValueError(f"traffic {cell.traffic_name}: warm-up nodes "
+                         f"{warm.node_redshifts} are not the ladder's lowest {WARMUP_NODES}")
+    return warm
 
 
 def lightcone_quantities(cell: Cell, use_ts: bool) -> tuple:

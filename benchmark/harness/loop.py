@@ -4,11 +4,17 @@ Set-up (`setup_s`, from the process's start): the program's import and its
 kernels' build (served from the checkout after the first run), the cell's
 inputs, `reset_peak_memory_stats`, the ICs from the seed, and one warm-up
 cone of the cell's own traffic, which warms every shape, FFT plan and host
-table the window uses.
+table the window uses: the whole cone, or where the ladder runs above the
+band a cone of its lowest nodes (`cells.warmup_inputs`).
 
 The window is a closed loop of whole lightcones from those ICs: each cone
 runs `generate_lightcone` to its final yield (dvdr and RSDs applied), the
-harness synchronises at its end, and the next starts.  No cone starts once
+harness synchronises at its end, and the next starts.  A cone scrolls the
+whole node ladder and holds the slices of the traffic's band: the band's
+own nodes, or where the physics carries a history (`cells.carries_history`)
+the ladder from Z_HEAT_MAX down, so that the spin temperature's history and
+the recombinations reach the band as they would in a user's cone
+(`cells.band_nodes`).  No cone starts once
 `seconds` have passed; the window ends with the last cone started.  A cone
 fails unless it yields every node, makes one deposit launch a node (on the
 card) and comes out finite.  `lightcone_s` is the window's seconds over its
@@ -43,8 +49,9 @@ def run_cone(p21, cell, inputs, ics, dev, tracer=None):
 
     use_ts = inputs.astro_options.USE_TS_FLUCT
     z = inputs.node_redshifts
+    band = cells.band_nodes(cell, inputs)
     lightconer = p21.RectilinearLightconer.with_equal_cdist_slices(
-        min_redshift=float(min(z)), max_redshift=float(max(z)), inputs=inputs,
+        min_redshift=min(band), max_redshift=max(band), inputs=inputs,
         quantities=cells.lightcone_quantities(cell, use_ts))
     launches0 = _launches()
     steps = p21.generate_lightcone(
@@ -52,7 +59,7 @@ def run_cone(p21, cell, inputs, ics, dev, tracer=None):
         include_dvdr_in_tau21=bool(cell.traffic["include_dvdr_in_tau21"]),
         apply_rsds=bool(cell.traffic["apply_rsds"]), device=dev)
     if tracer is not None:
-        tracer.begin_cone(len(z))
+        tracer.begin_cone(len(z), first=len(z) - len(band))
     nodes = 0
     while True:
         if tracer is not None:
@@ -92,7 +99,7 @@ def run(cell, seed: int, seconds: float, trace: bool, dev, t_start: float,
     ics = p21.compute_initial_conditions(inputs, device=dev)
     sync()
     ics_s = time.perf_counter() - t0
-    warm = run_cone(p21, cell, inputs, ics, dev)
+    warm = run_cone(p21, cell, cells.warmup_inputs(cell, inputs), ics, dev)
     sync()
     del warm
 

@@ -66,7 +66,9 @@ def initial_conditions(cell, seed, dev, overrides=None, precision="float32"):
 
 def cone(cell, seed, ics, dev, overrides=None, precision="float32") -> dict:
     """The reference's finished cone from its own ICs: {quantity: tensor},
-    with the quantities the program's cone holds."""
+    with the quantities the program's cone holds.  It runs its own chain over
+    the same node ladder (from Z_HEAT_MAX where the physics carries a
+    history) and slices the same band."""
     from ref21cm import cone as cone_module
 
     inp = inputs(cell, seed, overrides)
@@ -76,5 +78,6 @@ def cone(cell, seed, ics, dev, overrides=None, precision="float32") -> dict:
     quantities = list(cells.lightcone_quantities(cell, use_ts))
     if dvdr or rsds:
         quantities.append("velocity_z")
+    band = cells.band_nodes(cell, inp)
     return cone_module.cone(inp, ics, tuple(dict.fromkeys(quantities)), dvdr, rsds, dev,
-                            _rounding(precision))
+                            _rounding(precision), band=(min(band), max(band)))

@@ -7,9 +7,9 @@ one: the spans stop the program from overlapping one layer's host work with
 another's device work).  Host synchronisations are counted with
 torch.cuda.set_sync_debug_mode("warn"), the harness's own left out.  The
 profiler window covers three consecutive nodes at the middle of the first
-window cone: device time by operation, the union of device activity against
-the window's wall, and the longest idle gaps, each named by the host
-operation that overlapped it most.
+window cone's band (the nodes its slices lie between): device time by
+operation, the union of device activity against the window's wall, and the
+longest idle gaps, each named by the host operation that overlapped it most.
 """
 
 from __future__ import annotations
@@ -55,6 +55,7 @@ class Tracer:
         self.cone = None
         self.node = None
         self.cones = 0
+        self.band_first = 0  # index of the first node of each cone's band
         self.profile = None  # {"prof", "cone", "first", "walls"}
         self._caught = None
         self._t0 = None
@@ -115,11 +116,13 @@ class Tracer:
         return len(new)
 
     # ---- driven by the window's loop ----
-    def begin_cone(self, n_nodes: int):
+    def begin_cone(self, n_nodes: int, first: int = 0):
+        """A cone of `n_nodes` nodes whose band starts at node `first`."""
         self.cone = self.cones
         self.cones += 1
+        self.band_first = first
         if self.cone == 0 and n_nodes >= 1:
-            first = max(0, n_nodes // 2 - PROFILED_NODES // 2)
+            first += max(0, (n_nodes - first) // 2 - PROFILED_NODES // 2)
             self.profile = {"cone": 0, "first": first,
                             "last": min(n_nodes, first + PROFILED_NODES) - 1, "walls": []}
 
@@ -202,21 +205,25 @@ class Tracer:
         return out
 
     def record(self, ics_s: float, dim: int, hii_dim: int) -> dict:
-        """The record every per-layer reader reads."""
+        """The record every per-layer reader reads: the window's cones, each
+        from node `band_first` on (its band's nodes, where the scroll runs
+        above the band; every node otherwise) and its finalization."""
         from . import card
 
+        first = self.band_first
         layer_s = collections.defaultdict(float)
-        for layer, cone, node, s in self.spans:
-            if cone is not None:
-                layer_s[layer] += s
-        node_steps = [st for st in self.steps if st[1] is not None]
         in_nodes = collections.defaultdict(float)
         for layer, cone, node, s in self.spans:
-            if cone is not None and node is not None and layer in NODE_STAGES:
+            if cone is None or (node is not None and node < first):
+                continue
+            layer_s[layer] += s
+            if node is not None and layer in NODE_STAGES:
                 in_nodes[layer] += s
+        node_steps = [st for st in self.steps if st[1] is not None and st[1] >= first]
         return {
             "ics_s": ics_s,
             "cones": self.cones,
+            "band_first": first,
             "nodes": len(node_steps),
             "layer_s": dict(layer_s),
             "node_wall_s": float(sum(st[2] for st in node_steps)),

@@ -14,19 +14,20 @@ SPAN = "lc.schedule"
 
 
 def _books(record):
-    """Every book of the window's cones (each run's own and its nodes'), or
-    None unless the program has a recorder and its last `record["cones"]`
-    runs hold `record["nodes"]` nodes."""
+    """Every book of the window's cones (each run's own and its nodes' from
+    `record["band_first"]` on), or None unless the program has a recorder
+    and its last `record["cones"]` runs hold `record["nodes"]` such nodes."""
     try:
         from py21cmfast_torch import tracing
     except ImportError:
         return None
     cones = record.get("cones") or 0
     runs = tracing.runs(last=cones) if cones else []
+    first = record.get("band_first", 0)
     if len(runs) != cones or not cones or \
-            sum(len(r["nodes"]) for r in runs) != record.get("nodes"):
+            sum(len(r["nodes"]) - first for r in runs) != record.get("nodes"):
         return None
-    return [b for r in runs for b in [r] + r["nodes"]]
+    return [b for r in runs for b in [r] + r["nodes"][first:]]
 
 
 def read(record):

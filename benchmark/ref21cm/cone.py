@@ -29,13 +29,15 @@ def _slim(ion):
 
 
 def cone(inputs, ics: plain.ICs, quantities, include_dvdr, apply_rsds, dev,
-         rounding=lambda x: x) -> dict:
+         rounding=lambda x: x, band=None) -> dict:
     """{quantity: float64 (N, N, n_slices) tensor} of the finished cone from
-    `ics`; `quantities` as the program's cone holds them."""
+    `ics`; `quantities` as the program's cone holds them.  Every node of the
+    ladder is computed; the slices span `band` (z_min, z_max), the whole
+    ladder by default."""
     use_ts = inputs.astro_options.USE_TS_FLUCT
     z_nodes = [float(z) for z in inputs.node_redshifts]  # descending
     cosmo = inputs.cosmology
-    dists = plain.slice_distances(inputs, min(z_nodes), max(z_nodes))
+    dists = plain.slice_distances(inputs, *(band or (min(z_nodes), max(z_nodes))))
     n_lo = inputs.simulation_options.HII_DIM
     cones = {q: torch.zeros((n_lo, n_lo, len(dists)), dtype=torch.float64, device=dev)
              for q in quantities}

@@ -11,7 +11,7 @@ from conftest import SEED, TINY
 
 from harness import cells, compare, reference
 
-WORKLOADS = ["latest-dawn", "simple-eor"]
+WORKLOADS = ["latest-dawn", "simple-eor", "latest-eor"]
 
 
 def _control_readings(workload, dev, overrides):

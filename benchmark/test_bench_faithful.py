@@ -43,7 +43,7 @@ def test_the_cell_is_latest_at_ratio_4_with_minimize_memory():
     assert (params.pop("DIM"), params.pop("MINIMIZE_MEMORY")) == (4 * params["HII_DIM"], True)
     assert (base.pop("DIM"), base.pop("MINIMIZE_MEMORY")) == (3 * base["HII_DIM"], False)
     assert params == base
-    assert [m["name"] for m in cell.per_layer] == list(READERS)
+    assert set(READERS) <= {m["name"] for m in cell.per_layer}
 
 
 def test_the_tiny_cell_agrees_with_the_reference(traced_run):
@@ -58,8 +58,10 @@ def test_the_tiny_cell_agrees_with_the_reference(traced_run):
 def test_readers_read_the_traced_run(traced_run):
     """The ICs' spans are read from the run's one ICs call; the peak counter
     and the deposit's window need the card."""
-    _, result = traced_run
-    assert set(result["metrics"]) == {"ics.sample_s", "ics.2lpt_s"}
+    cell, result = traced_run
+    got = set(result["metrics"])
+    assert {"ics.sample_s", "ics.2lpt_s"} <= got <= {m["name"] for m in cell.per_layer}
+    assert not got & {"ics.peak_gib", "deposit.r4_roofline_pct"}
     for m in result["metrics"].values():
         assert math.isfinite(m["value"]) and m["value"] > 0
     assert result["metrics"]["ics.sample_s"]["value"] < result["info"]["ics_s"]

@@ -57,15 +57,15 @@ def _half_the_slices(owner, attr):
 
 FAULTS = {
     "ts_state_unchanged": ("py21cmfast_torch.models.spintemp", "compute_spin_temperature",
-                           _stale, ["latest-dawn"]),
+                           _stale, ["latest-dawn", "latest-eor"]),
     "ionized_state_unchanged": ("py21cmfast_torch.models.ionization",
                                 "compute_ionization_field", _stale,
-                                ["latest-dawn", "simple-eor"]),
+                                ["latest-dawn", "simple-eor", "latest-eor"]),
     "density_altered": ("py21cmfast_torch.models.perturb", "perturb_field", _altered_density,
-                        ["latest-dawn", "simple-eor"]),
+                        ["latest-dawn", "simple-eor", "latest-eor"]),
     "half_the_slices": ("py21cmfast_torch.lightconers:RectilinearLightconer",
                         "make_lightcone_slices", _half_the_slices,
-                        ["latest-dawn", "simple-eor"]),
+                        ["latest-dawn", "simple-eor", "latest-eor"]),
 }
 CASES = [(f, w) for f, (_, _, _, ws) in FAULTS.items() for w in ws]
 

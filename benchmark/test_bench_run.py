@@ -58,9 +58,12 @@ def test_traced_run_reads_its_layers():
     cell, (result, _) = _run("simple-eor", trace=True)
     assert result["correct"] is True
     got = set(result["metrics"])
+    assert {"ics.s", "perturb.ms_per_node", "ionize.s_per_node", "scroll.self_ms_per_node",
+            "scroll.host_syncs_per_node", "lc.ms_per_cone"} <= got
+    assert got <= {m["name"] for m in cell.per_layer}
     # the device's metrics need the card; Ts does not run in this cell
-    assert got == {"ics.s", "perturb.ms_per_node", "ionize.s_per_node",
-                   "scroll.self_ms_per_node", "scroll.host_syncs_per_node", "lc.ms_per_cone"}
+    assert not got & {"device.idle_pct", "device.kernels_per_node", "deposit.roofline_pct"}
+    assert not any(name.startswith("ts.") for name in got)
     assert "busy_s" not in result["device"] and result["device"]["window_s"] > 0
     assert result["metrics"]["ionize.s_per_node"]["value"] > 0
 
