@@ -85,6 +85,17 @@ def resolve(name: str, bench: dict | None = None, root: Path = ROOT,
     )
 
 
+def from_files(config_file: Path, traffic: str, bench_dir: Path = BENCH_DIR) -> Cell:
+    """A cell that BENCHMARK.json does not name yet: the configuration file
+    under one traffic mix on one chip, with no metrics and no limits (for
+    `calibrate.py`, which reads the limits' readings)."""
+    config = _toml(Path(config_file))
+    return Cell(name=f"{config['name']}.{traffic}", chips=1, config_name=config["name"],
+                config=config, traffic_name=traffic,
+                traffic=_toml(bench_dir / "traffic" / f"{traffic}.toml"),
+                end_to_end=(), per_layer=(), limits={})
+
+
 def metric_reader(metric: str, bench_dir: Path = BENCH_DIR):
     """The module of `metrics/<metric>.py`: UNIT, LAYER, MOVES and
     `read(record) -> float | None`."""

@@ -22,7 +22,12 @@ cones; `peak_gib` is max_memory_allocated from before the ICs to the
 window's end.
 
 After the window one of its cones, drawn from the seed, is compared with the
-reference (`reference.py`) by `compare.py`.
+reference (`reference.py`) by `compare.py`.  Where the configuration samples
+halos, the window holds the host copies of each cone's catalogs that the
+scroll parks on the host (`host_catalogs`), no copy of its own and nothing
+on the device, and keeps those of the compared cone: the reference takes
+them as the cone's random input, and the catalog gate (`ref21cm/gate.py`)
+holds them to the conditional mass function; its numbers join the checks.
 """
 
 from __future__ import annotations
@@ -40,6 +45,28 @@ def _launches():
     from py21cmfast_torch.ops import deposit
 
     return deposit.cic_deposit_swept.launches
+
+
+@contextlib.contextmanager
+def host_catalogs(book: dict):
+    """While it is open, `book` takes each halo catalog that is moved to the
+    host (the scroll parks each node's there until its node), keyed by its
+    redshift: a reference to that copy, no copy of its own."""
+    from py21cmfast_torch.outputs import HaloCatalog
+
+    to_device = HaloCatalog.to
+
+    def to(self, device):
+        out = to_device(self, device)
+        if type(out) is HaloCatalog and out.halo_masses.device.type == "cpu":
+            book[float(out.redshift)] = out
+        return out
+
+    HaloCatalog.to = to
+    try:
+        yield book
+    finally:
+        HaloCatalog.to = to_device
 
 
 def run_cone(p21, cell, inputs, ics, dev, tracer=None):
@@ -109,7 +136,9 @@ def run(cell, seed: int, seconds: float, trace: bool, dev, t_start: float,
 
         tracer = Tracer(dev)
     rng = random.Random(int(seed))
+    samples = inputs.matter_options.source_model_uses_halo_sampler
     kept, kept_at, flags, failed, attempted, crashed = None, None, [], 0, 0, False
+    kept_catalogs = None
     cone_s = []
     sync()
     window_start = time.perf_counter()
@@ -118,8 +147,10 @@ def run(cell, seed: int, seconds: float, trace: bool, dev, t_start: float,
         while attempted == 0 or time.perf_counter() - window_start < seconds:
             attempted += 1
             t_cone = time.perf_counter()
+            book = {}
             try:
-                lc, nodes, launches, finite = run_cone(p21, cell, inputs, ics, dev, tracer)
+                with host_catalogs(book) if samples else contextlib.nullcontext():
+                    lc, nodes, launches, finite = run_cone(p21, cell, inputs, ics, dev, tracer)
             except Exception:  # a cone that raises has failed; the window ends
                 traceback.print_exc()
                 failed += 1
@@ -133,8 +164,8 @@ def run(cell, seed: int, seconds: float, trace: bool, dev, t_start: float,
                 failed += 1
             flags.append(finite)
             if rng.random() < 1.0 / attempted:  # one cone, drawn from the seed
-                kept, kept_at = lc, attempted
-            del lc
+                kept, kept_at, kept_catalogs = lc, attempted, book
+            del lc, book
     window_s = time.perf_counter() - window_start
     peak = int(torch.cuda.max_memory_allocated(dev)) if on_card else 0
     failed += sum(1 for f in flags if not bool(f))
@@ -154,11 +185,16 @@ def run(cell, seed: int, seconds: float, trace: bool, dev, t_start: float,
         del ics
         if on_card:
             torch.cuda.empty_cache()
-        ref_cones = reference.cone(cell, seed, ref_ics, dev, overrides)
-        del ref_ics
+        catalogs = reference.catalogs_of(kept_catalogs) if samples else None
+        del kept_catalogs
+        ref_cones = reference.cone(cell, seed, ref_ics, dev, overrides, catalogs=catalogs)
+        gate = reference.gate(cell, seed, catalogs, ref_ics, overrides) if samples else {}
+        del ref_ics, catalogs
         readings.update(compare.cone_readings(prog_cones, ref_cones))
         del prog_cones, ref_cones
         correct, checks = compare.judge(readings, cell.limits)
+        checks.update(gate)
+        correct = correct and all(c["value"] <= c["limit"] for c in gate.values())
     correct = correct and failed == 0
     reference_s = time.perf_counter() - t_ref
 

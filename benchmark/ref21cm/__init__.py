@@ -7,6 +7,13 @@ Two parts, neither importing anything of the program under test:
   velocity with a plain cloud-in-cell scatter, the brightness temperature,
   the node ladder, the lightcone slices, the velocity-gradient correction
   and the RSDs;
+- `halos` and `gate`, written for the benchmark from the equations in
+  float64, where the configuration samples halos: the catalogs are the
+  compared cone's own, handed over by the harness as the cone's random
+  input (the one thing the reference takes from the program); `halos`
+  moves and grids them into the HaloBox and the XraySourceBox that the
+  frozen spin temperature and ionization read, and `gate` holds them to the
+  conditional mass function by the reference's own tables;
 - the astrophysics of the spin temperature and the ionization
   (`models/`, with the input parameters, the background cosmology and the
   host tables they read: `inputs.py`, `cosmology/`, `ops/`, `_data/`), a

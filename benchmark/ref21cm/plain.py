@@ -60,8 +60,12 @@ class ICs:
 
 
 def _check(inputs):
-    so, mo = inputs.simulation_options, inputs.matter_options
+    so, mo, ao = inputs.simulation_options, inputs.matter_options, inputs.astro_options
+    sampler = mo.source_model_uses_halo_sampler
     unsupported = {
+        "SOURCE_MODEL": mo.SOURCE_MODEL in ("L-INTEGRAL", "DEXM-ESF"),
+        "USE_MINI_HALOS with a halo sampler": sampler and ao.USE_MINI_HALOS,
+        "LYA_MULTIPLE_SCATTERING with a halo sampler": sampler and ao.LYA_MULTIPLE_SCATTERING,
         "NON_CUBIC_FACTOR": so.NON_CUBIC_FACTOR != 1.0,
         "PERTURB_ON_HIGH_RES": mo.PERTURB_ON_HIGH_RES,
         "SMOOTH_EVOLVED_DENSITY_FIELD": mo.SMOOTH_EVOLVED_DENSITY_FIELD,
